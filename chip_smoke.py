@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs its main path on one GPU.
+"""Quickest proof that the PyTorch/CUDA port runs its paths on one GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit; build the CUDA kernels from
-     zukelang_tpu_torch/csrc (nvcc, sm_90a) and report the build time;
+     zukelang_tpu_torch/csrc (one nvcc per source, sm_90a) and the port's
+     native pairing (zukelang_tpu_torch/hostsrc, the host C++ compiler),
+     both at once, and report their build times;
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes; integer outputs must be equal; times from CUDA
-     events after a warm-up;
-  3. the x^3 + x + 3 circuit: keygen and prove through the kernels with
-     injected scalars; the proof bytes must equal the golden Groth16's;
-  4. the main path: Groth16 keygen, prove (one cold, three warm) and
-     verify on make_synthetic_r1cs(16, seed=1), with every kernel launch
-     counted; each kernel of the path must have launched.
-Then one JSON line per kernel summary, the card line, and the last line
+     paths' shapes; integer outputs must be equal; times from CUDA events
+     after a warm-up, beside each kernel's bound (bytes or operations);
+  3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
+     prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
+     the injected scalars; the proof bytes must equal the golden ones;
+  4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
+     make_synthetic_r1cs(16, seed=1), every kernel launch counted;
+  5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
+     on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
+     (one cold, three warm), verify; then one NonZK prove and its verify,
+     and one more ZK prove, every kernel launch counted.
+Phases 4 and 5 also print the launches of one prove.
+Each path of phases 4 and 5 starts from zeroed counts; every kernel of
+the path must have launched in it, and K3 in both keygens.  Then one JSON
+line with the kernel summaries, the card line, and the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA it stops at once with a non-zero exit and prints no result.
-It imports nothing of JAX: the port and the jax-free modules of the
-reference (golden protocol, pairing, rng, circuit compiler) only.
+It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -30,10 +38,13 @@ import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-sys.modules["jax"] = None  # any JAX import below fails loudly
+sys.modules["jax"] = None           # any JAX import below fails loudly
+sys.modules["zukelang_tpu"] = None  # and so does any import of the JAX package
 
-LOG_CONSTRAINTS = 16   # the bench headline groth16_prove_2^16
+LOG_CONSTRAINTS = 16        # the bench headline groth16_prove_2^16
+PIN_LOG_CONSTRAINTS = 14    # the JAX bench's pinocchio_prove_2^14
 
 # kernel -> (its CUDA source, the Pallas entry point it replaces)
 REPLACES = {
@@ -43,6 +54,8 @@ REPLACES = {
                   "zukelang_tpu/ops/pallas_kernels.py:346"),
     "point_double": ("zukelang_tpu_torch/csrc/point_ops.cu",
                      "zukelang_tpu/ops/pallas_kernels.py:359"),
+    "point_madd": ("zukelang_tpu_torch/csrc/point_ops.cu",
+                   "zukelang_tpu/ops/pallas_kernels.py:663"),
     "digit_sort": ("zukelang_tpu_torch/csrc/digit_sort.cu",
                    "zukelang_tpu/ops/pallas_kernels.py:1173"),
     "bucket_scan_rows": ("zukelang_tpu_torch/csrc/bucket_scan.cu",
@@ -52,6 +65,18 @@ REPLACES = {
     "weighted_chunk_sums": ("zukelang_tpu_torch/csrc/weighted_sums.cu",
                             "zukelang_tpu/ops/pallas_kernels.py:1455"),
 }
+
+# The least time the card could take: bytes over the HBM rate, and limb
+# products over the integer rate.  NVIDIA's data sheet gives no 32-bit
+# integer rate; an H100 SXM has 132 SMs of 64 INT32 lanes at up to
+# 1.98 GHz, 16.7e12 32-bit multiply-adds per second.  One operation is one
+# 32x32->64-bit limb product (its two halves take two issue slots on the
+# card, so this bound is optimistic by up to 2x).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+# limb products of one CIOS Montgomery product: a*b and m*p (nl^2 each)
+# plus the nl reduction digits; an Fq2 product is three Fq products
+PRODUCTS = {"Fr": 2 * 8 * 8 + 8, "Fq": 2 * 12 * 12 + 12}
 
 
 def log(*a):
@@ -95,6 +120,63 @@ def _max_err(a, b) -> int:
     return int((x - y).abs().max()) if x.numel() else 0
 
 
+def _nbytes(*ts) -> int:
+    """Bytes of tensors (nested tuples and lists allowed)."""
+    total = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            total += _nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
+    / integer rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _fq_ops(group: str, fq_products) -> int:
+    """Limb products of `fq_products` coordinate-field products."""
+    return int(fq_products) * PRODUCTS["Fq"] * (3 if group == "g2" else 1)
+
+
+def _zero_coord(c):
+    """(N,) bool: the coordinate is 0 (G1 (12, N), G2 (2, 12, N))."""
+    return (c.reshape(-1, c.shape[-1]) == 0).all(dim=0)
+
+
+def _scan_adds(inf, restart):
+    """Full adds a K7-style scan does: inf (K, M) input infinity per step,
+    restart (K, M) where the accumulator restarts.  An add costs only
+    when both operands are finite."""
+    acc_inf, adds = inf[0], 0
+    for t in range(1, inf.shape[0]):
+        adds += int((~restart[t] & ~acc_inf & ~inf[t]).sum())
+        acc_inf = inf[t].where(restart[t], acc_inf & inf[t])
+    return adds
+
+
+def _wsum_adds(inf):
+    """Full adds of K6 on inf (K, M) (step t = element K-1-t): s += v,
+    then w += s for all but the last step; w starts at infinity."""
+    s_inf, w_inf, adds = inf[0], None, 0
+    for t in range(inf.shape[0]):
+        if t:
+            adds += int((~s_inf & ~inf[t]).sum())
+            s_inf = s_inf & inf[t]
+        if t < inf.shape[0] - 1:
+            if w_inf is not None:
+                adds += int((~w_inf & ~s_inf).sum())
+                w_inf = w_inf & s_inf
+            else:
+                w_inf = s_inf
+    return adds
+
+
 def kernel_checks(dev, rng: random.Random):
     import torch
     from zukelang_tpu_torch.ops import field as F
@@ -116,15 +198,21 @@ def kernel_checks(dev, rng: random.Random):
 
     results = {}
 
-    def record(name, kern, plain, reps=20, plain_reps=2):
+    def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
+        """work(got) -> (bytes, operations) of this call."""
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = _max_err(got, want)
         ms = _timed(kern, reps)
         plain_ms = _timed(plain, plain_reps)
-        results.setdefault(name, []).append((err, ms, plain_ms))
-        log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms")
+        lib_ms = _timed(library, reps) if library is not None else None
+        bound_ms, bound_by = _bound(*work(got))
+        results.setdefault(name, []).append(dict(
+            err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
+        log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
         if err != 0:
             raise AssertionError(f"{name}: kernel disagrees with plain")
 
@@ -133,7 +221,8 @@ def kernel_checks(dev, rng: random.Random):
         a, b = rand_field(spec, n), rand_field(spec, n)
         log(f"K1 mont_mul {spec.name} (nl, 2^16)")
         record("mont_mul", lambda: K.mont_mul(a, b, spec),
-               lambda: K.mont_mul_plain(a, b, spec))
+               lambda: K.mont_mul_plain(a, b, spec),
+               lambda got: (_nbytes(a, b, got), n * PRODUCTS[spec.name]))
 
     n2 = 1 << 12
     for group in ("g1", "g2"):
@@ -148,11 +237,54 @@ def kernel_checks(dev, rng: random.Random):
         Q[1][..., 2::5] = negY[..., 2::5]
         Q[2][..., 3::5] = 0
         Q = tuple(Q)
+        finite = ~_zero_coord(P[2]) & ~_zero_coord(Q[2])
+        equal = torch.stack([(a == b).reshape(-1, n2).all(0)
+                             for a, b in zip(P, Q)]).all(0)
+        # add-2007-bl: 16 products, 15 where P == Q (8 + the doubling's 7)
+        add_products = int(16 * (finite & ~equal).sum()
+                           + 15 * (finite & equal).sum())
         log(f"K2 point_add / point_double {group} (2^12)")
         record("point_add", lambda: K.point_add(P, Q),
-               lambda: K.point_add_plain(P, Q), plain_reps=1)
+               lambda: K.point_add_plain(P, Q),
+               lambda got: (_nbytes(P, Q, got), _fq_ops(group, add_products)),
+               plain_reps=1)
         record("point_double", lambda: K.point_double(P),
-               lambda: K.point_double_plain(P), plain_reps=1)
+               lambda: K.point_double_plain(P),
+               lambda got: (_nbytes(P, got), _fq_ops(group, 7 * n2)),
+               plain_reps=1)
+
+        # K3: Jacobian P + affine Q with infinity on both sides, P == Q
+        # (flagged) and P == -Q lanes; at 2^12 and at the keygen path's
+        # shape (a fixed-base batch of 16 lanes, one partial block)
+        for nm in (n2, 16):
+            one = F.ones_mont(nm, FQ, dev)
+            if group == "g2":
+                one = torch.stack([one, torch.zeros_like(one)])
+            Pm = [x.clone() for x in rand_points(group, nm)]
+            qx, qy = rand_coord(group, nm), rand_coord(group, nm)
+            Pm[2][..., 1::5] = one[..., 1::5]
+            qx[..., 1::5], qy[..., 1::5] = Pm[0][..., 1::5], Pm[1][..., 1::5]
+            Pm[2][..., 2::5] = one[..., 2::5]
+            qx[..., 2::5] = Pm[0][..., 2::5]
+            negY = F.fq2_neg(Pm[1]) if group == "g2" else F.neg(Pm[1], FQ)
+            qy[..., 2::5] = negY[..., 2::5]
+            qx[..., 3::5] = 0
+            qy[..., 3::5] = 0
+            Pm, Qa = tuple(Pm), (qx, qy)
+            p_inf = _zero_coord(Pm[2])
+            q_inf = _zero_coord(qx) & _zero_coord(qy)
+            if not (bool(p_inf.any()) and bool(q_inf.any())):
+                raise AssertionError("point_madd: no infinity lanes")
+            madd_lanes = int((~p_inf & ~q_inf).sum())
+            log(f"K3 point_madd {group} ({nm} lanes)")
+            record("point_madd", lambda: K.point_madd(Pm, Qa),
+                   lambda: K.point_madd_plain(Pm, Qa),
+                   lambda got: (_nbytes(Pm, Qa, got),
+                                _fq_ops(group, 11 * madd_lanes)),
+                   plain_reps=1)
+            _got, flag = K.point_madd(Pm, Qa)
+            if not bool(flag[1::5].all()) or bool(flag[2::5].any()):
+                raise AssertionError("point_madd: doubling flag wrong")
 
     c = 13
     nb = (1 << (c - 1)) + 1
@@ -160,7 +292,9 @@ def kernel_checks(dev, rng: random.Random):
                            device=dev)
     log("K4 digit_sort (20 windows x 2^16 digits, c = 13)")
     record("digit_sort", lambda: K.digit_sort(digits, nb),
-           lambda: K.digit_sort_plain(digits, nb))
+           lambda: K.digit_sort_plain(digits, nb),
+           lambda got: (_nbytes(digits, got), 0),
+           library=lambda: torch.sort(digits, dim=-1, stable=True))
     sk, order = K.digit_sort(digits, nb)
     if not torch.equal(torch.gather(digits, 1, order.long()), sk):
         raise AssertionError("digit_sort: keys[order] != sorted keys")
@@ -176,84 +310,92 @@ def kernel_checks(dev, rng: random.Random):
         steps = torch.randint(0, 2, (Kc, 1, M), device=dev, dtype=torch.int32)
         seg3 = torch.cumsum(steps, dim=0).to(torch.int32)
         segp3 = torch.cat([seg3[:1], seg3[:-1]], dim=0)
+        inf = (pts3 == 0).all(dim=1)                       # (K, M)
+        restart = (seg3 != segp3)[:, 0]
+        restart[0] = True
+        madds = _scan_adds(inf, restart)
         for tails in (False, True):
             log(f"K5 bucket_scan_rows {group} (32, {2 * rows}, 2048) "
                 f"tails_only={tails}")
             record("bucket_scan_rows",
                    lambda: K.bucket_scan_rows(pts3, seg3, segp3, group, tails),
                    lambda: K.bucket_scan_rows_plain(pts3, seg3, segp3, group,
-                                                    tails), plain_reps=1)
+                                                    tails),
+                   lambda got: (_nbytes(pts3, seg3, segp3, got),
+                                _fq_ops(group, 11 * madds)), plain_reps=1)
 
     n7 = 1 << 15
     for group in ("g1", "g2"):
         P = rand_points(group, n7)
         seg = torch.cumsum(torch.randint(0, 2, (n7,), device=dev), 0).to(
             torch.int32)
+        inf = _zero_coord(P[2]).reshape(-1, 32).t()          # (K, M)
         for s in (None, seg):
+            restart = torch.zeros_like(inf)
+            restart[0] = True
+            if s is not None:
+                sk_ = s.reshape(-1, 32).t()
+                restart[1:] = sk_[1:] != sk_[:-1]
+            adds = _scan_adds(inf, restart)
             log(f"K7 jac_scan {group} (2^15, K = 32, seg={s is not None})")
             record("jac_scan", lambda: K.jac_scan(P, 32, s),
-                   lambda: K.jac_scan_plain(P, 32, s), plain_reps=1)
+                   lambda: K.jac_scan_plain(P, 32, s),
+                   lambda got: (_nbytes(P, s, got),
+                                _fq_ops(group, 16 * adds)), plain_reps=1)
+        adds = _wsum_adds(inf.flip(0))
         log(f"K6 weighted_chunk_sums {group} (2^15, K = 32)")
         record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(P, 32),
-               lambda: K.weighted_chunk_sums_plain(P, 32), plain_reps=1)
+               lambda: K.weighted_chunk_sums_plain(P, 32),
+               lambda got: (_nbytes(P, got), _fq_ops(group, 16 * adds)),
+               plain_reps=1)
     return results
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: small circuit against the golden protocol
+# Phase 3: the frozen small-circuit vectors
 # ---------------------------------------------------------------------------
 
 def small_circuit(dev):
-    from zukelang_tpu.core import comp, lang as L, qap as qap_mod
-    from zukelang_tpu.golden.field import Fr
-    from zukelang_tpu.protocols.groth16 import Groth16
-    from zukelang_tpu.rng import Gen, InjectedRng
-    from zukelang_tpu_torch.core import flat
-    from zukelang_tpu_torch.protocols import groth16_device as gd
-
-    e = L.let_(L.input("input", L.SECRET, L.ty_field),
-               lambda x: L.add(L.add(L.mul(L.mul(x, x), x), x), L.fnum(3)))
-    c = comp.compile_expr(e)
-    q = qap_mod.build(c.gates, domain="ntt")
-    _i, _env_lang, env_code = comp.gen_inputs(c.inputs, Gen(3))
-    sol = comp.code_eval_list(env_code, c.codes)
-    key_sc = [Fr(i + 1000) for i in range(5)]
-    prove_sc = [Fr(77), Fr(88)]
-    proto = Groth16()
-    pk, _vk = proto.keygen(InjectedRng(key_sc), c.circuit, q)
-    golden = proto.prove(InjectedRng(prove_sc), q, pk, sol)
-
-    fc = flat.flatten(c.gates)
-    crs, dvk = gd.keygen_device(
-        fc, mids=list(c.circuit.mids),
-        ios=list(c.circuit.inputs_public | c.circuit.outputs),
-        rng=InjectedRng(key_sc), device=dev)
-    proof = gd.prove_device(crs, fc, fc.pack_witness(sol, dev),
-                            InjectedRng(prove_sc))
-    for part in ("a", "b", "c"):
-        got = getattr(proof, part).to_compressed_bytes()
-        want = getattr(golden, part).to_compressed_bytes()
-        if got != want:
-            raise AssertionError(f"small circuit: proof.{part} differs from "
-                                 "the golden Groth16")
-    public = {v: f for v, f in sol.items() if v not in c.circuit.mids}
-    if not gd.verify(public, dvk, proof):
-        raise AssertionError("small circuit: proof does not verify")
-    log("small circuit: proof bytes equal to golden Groth16, verified")
+    from zukelang_tpu_torch import vectors
+    vec = vectors.load()
+    res = vectors.prove_all(vec, dev)
+    if set(res) != set(vec.proofs):
+        raise AssertionError(f"x^3+x+3: proved {sorted(res)}, the file "
+                             f"holds {sorted(vec.proofs)}")
+    for name, (got, ok) in res.items():
+        if got != vec.proofs[name]:
+            raise AssertionError(f"x^3+x+3: {name} proof differs from the "
+                                 "golden bytes")
+        if not ok:
+            raise AssertionError(f"x^3+x+3: {name} proof does not verify")
+        log(f"  {name}: proof bytes equal to the golden ones, verified")
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phases 4 and 5: the paths, each from zeroed launch counts
 # ---------------------------------------------------------------------------
 
-def main_path(dev, log_constraints: int):
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _check_launches(path: str, counts: dict, keygen_madds: int) -> None:
+    log(f"launch counts over the {path} run: {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{path} never launched: {missing}")
+    if keygen_madds <= 0:
+        raise AssertionError(f"{path}: K3 did not launch in keygen")
+
+
+def groth16_path(dev, log_constraints: int):
     import torch
-    from zukelang_tpu.golden.field import Fr
-    from zukelang_tpu.rng import Gen
     from zukelang_tpu_torch import bench_lib
+    from zukelang_tpu_torch.golden.field import Fr
     from zukelang_tpu_torch.ops import kernels as K
     from zukelang_tpu_torch.ops import msm
     from zukelang_tpu_torch.protocols import groth16_device as gd
+    from zukelang_tpu_torch.rng import Gen
 
     t0 = time.time()
     inst = bench_lib.make_synthetic_r1cs(
@@ -270,15 +412,18 @@ def main_path(dev, log_constraints: int):
                                  rng=Gen(b"bench-keygen"), device=dev)
     torch.cuda.synchronize()
     keygen_s = time.time() - t0
+    keygen_madds = K.LAUNCHES["point_madd"]
     wm = inst.pack_witness(dev)
     t0 = time.time()
     proof = gd.prove_device(crs, fc, wm, Gen(b"bench-prove"))
     prove_first_s = time.time() - t0
     times = []
     for i in range(3):
+        before = dict(K.LAUNCHES)
         t0 = time.time()
         proof = gd.prove_device(crs, fc, wm, Gen(b"bench-prove-%d" % i))
         times.append(time.time() - t0)
+    per_prove = _diff(K.LAUNCHES, before)
     t0 = time.time()
     public = {int(col): Fr(inst.witness[col]) for col in inst.ios_cols}
     ok = gd.verify(public, vkey, proof)
@@ -287,40 +432,62 @@ def main_path(dev, log_constraints: int):
     prove_s = min(times)
     n = 1 << log_constraints
     msm_terms = 4 * n + len(inst.mids_cols) + 3 * n
-    log(f"keygen_s {keygen_s:.3f}")
+    log(f"keygen_s {keygen_s:.3f}  (K3 launches in keygen: {keygen_madds})")
     log(f"prove_first_s {prove_first_s:.3f}")
     log(f"prove_s {prove_s:.4f}  (warm runs {[round(t, 4) for t in times]})")
     log(f"verify_s {verify_s:.3f}  verified {ok}")
     log(f"msm_mterms_per_s {msm_terms / prove_s / 1e6:.3f}  "
         f"(G1-equivalent terms per prove: {msm_terms})")
-    log(f"launch counts over keygen + 4 proves + verify: {counts}")
+    log(f"launches per prove: {per_prove}")
     if not ok:
-        raise AssertionError("main path: proof does not verify")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
-    return counts
+        raise AssertionError("groth16: proof does not verify")
+    _check_launches("groth16", counts, keygen_madds)
+    return counts, per_prove
 
 
-def pairing_backend() -> str:
-    """Probe the native pairing in a child process: the tracked library
-    was built for another host's CPU and may fault here.  The golden
-    oracle is selected when the probe fails."""
-    probe = ("from zukelang_tpu.golden import G1, G2, pairing as gp\n"
-             "from zukelang_tpu import native\n"
-             "g, h = G1.generator(), G2.generator()\n"
-             "assert native.gt_pairing(g, h) == gp(g, h)\n")
-    try:
-        res = subprocess.run([sys.executable, "-c", probe], timeout=600,
-                             capture_output=True, text=True,
-                             cwd=os.path.dirname(os.path.abspath(__file__)))
-        native_ok = res.returncode == 0
-    except subprocess.TimeoutExpired:
-        native_ok = False
-    if not native_ok:
-        os.environ["ZUKELANG_NATIVE_PAIRING"] = "0"
-        return "golden (native probe failed: ZUKELANG_NATIVE_PAIRING=0)"
-    return "native"
+def pinocchio_path(dev, log_constraints: int):
+    import torch
+    from zukelang_tpu_torch import bench_lib
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+    from zukelang_tpu_torch.protocols import pinocchio_device as pd
+    from zukelang_tpu_torch.rng import Gen
+
+    msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
+    K.reset_counts()
+    run = bench_lib.run_pinocchio(log_constraints, seed=1, repeats=3,
+                                  zk=True, device=dev)
+    res = run.record()
+    after_zk = dict(K.LAUNCHES)        # keygen + ZK proves + verify
+    args = (run.pkey, run.inst.fc, run.witness)
+    t0 = time.time()
+    proof = pd.prove_device(*args, Gen(b"bench-pin-nonzk"), zk=False)
+    nonzk_s = time.time() - t0
+    nonzk_per_prove = _diff(K.LAUNCHES, after_zk)
+    ok = pd.verify(run.public, run.vkey, proof)
+    before = dict(K.LAUNCHES)
+    pd.prove_device(*args, Gen(b"bench-pin-count"), zk=True)
+    per_prove = _diff(K.LAUNCHES, before)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    keygen_madds = run.keygen_launches["point_madd"]
+    log(f"build_r1cs_s {run.build_r1cs_s:.3f}  (domain 2^{res['domain_log']}, "
+        f"{len(run.pkey.v_all_tail)} all-variable tail points)")
+    log(f"keygen_s {res['keygen_s']:.3f}  (K3 launches in keygen: "
+        f"{keygen_madds})")
+    log(f"prove_first_s {res['prove_first_s']:.3f}  (ZK)")
+    log(f"prove_s {res['prove_s']:.4f}  (ZK; warm runs "
+        f"{[round(t, 4) for t in run.warm_s]})")
+    log(f"verify_s {res['verify_s']:.3f}  verified {res['verified']}")
+    log(f"nonzk prove_s {nonzk_s:.4f}  verified {ok}")
+    log(f"msm_mops_per_s {res['msm_mops_per_s']:.3f}  (G1-equivalent terms "
+        f"per ZK prove: {res['msm_terms_per_prove']})")
+    log(f"launches per ZK prove: {per_prove}")
+    log(f"launches per NonZK prove: {nonzk_per_prove}")
+    if not ok:
+        raise AssertionError("pinocchio: NonZK proof does not verify")
+    _check_launches("pinocchio", counts, keygen_madds)
+    return counts, per_prove
 
 
 def main() -> int:
@@ -330,7 +497,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from zukelang_tpu_torch import build
+    from zukelang_tpu_torch import build, native
     from zukelang_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda:0")
@@ -338,26 +505,39 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
-    build.library()
-    log(f"kernel build_s {time.time() - t0:.2f} (nvcc {build.build_seconds})")
-    log(f"pairing backend: {pairing_backend()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(build.library), pool.submit(native.library)]
+        for b in builds:
+            b.result()
+    log(f"build_s {time.time() - t0:.2f}: kernels (nvcc) "
+        f"{build.build_seconds}, native pairing (c++) {native.build_seconds}")
 
     log("phase 2: kernels against plain versions")
     checks = kernel_checks(dev, random.Random(2024))
-    log("phase 3: small circuit")
+    log("phase 3: x^3+x+3 vectors (Groth16, Pinocchio NonZK and ZK)")
     small_circuit(dev)
-    log(f"phase 4: main path at 2^{LOG_CONSTRAINTS}")
-    counts = main_path(dev, LOG_CONSTRAINTS)
+    log(f"phase 4: groth16 at 2^{LOG_CONSTRAINTS}")
+    paths = {f"groth16_2^{LOG_CONSTRAINTS}": groth16_path(dev, LOG_CONSTRAINTS)}
+    log(f"phase 5: pinocchio at 2^{PIN_LOG_CONSTRAINTS}")
+    paths[f"pinocchio_2^{PIN_LOG_CONSTRAINTS}"] = pinocchio_path(
+        dev, PIN_LOG_CONSTRAINTS)
 
     kernels = []
     for name in K.KERNELS:
         source, replaces = REPLACES[name]
         rows = checks[name]
+        last = rows[-1]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(r[0] for r in rows),
-            "ms": rows[-1][1], "plain_ms": rows[-1][2]})
+            "replaces": replaces,
+            "launches": sum(c[name] for c, _ in paths.values()),
+            "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
+            "launches_per_prove": {p: pp[name]
+                                   for p, (_, pp) in paths.items()},
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": last["ms"], "plain_ms": last["plain_ms"],
+            "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],
+            "library_ms": last["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,32 @@ def test_point_kernels_equal_plain(dev, group):
                zip(K.point_double(P), K.point_double_plain(P)))
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_point_madd_kernel_equals_plain(dev, group):
+    """K3 and its flag: random lanes, affine infinity, Jacobian infinity,
+    p == q (flagged) and p == -q lanes."""
+    n = 300
+    P = list(_points(group, n, 23, dev))
+    qx, qy = _coord(group, n, 29, dev), _coord(group, n, 31, dev)
+    one = F.ones_mont(n, FQ, dev)
+    if group == "g2":
+        one = torch.stack([one, torch.zeros_like(one)])
+    P[2][..., 1::5] = one[..., 1::5]               # Z = 1: affine lanes
+    qx[..., 1::5], qy[..., 1::5] = P[0][..., 1::5], P[1][..., 1::5]
+    P[2][..., 2::5] = one[..., 2::5]
+    qx[..., 2::5] = P[0][..., 2::5]
+    neg = F.fq2_neg(P[1]) if group == "g2" else F.neg(P[1], FQ)
+    qy[..., 2::5] = neg[..., 2::5]
+    qx[..., 3::5] = qy[..., 3::5] = 0               # q = infinity
+    P, Q = tuple(P), (qx, qy)
+    before = K.LAUNCHES["point_madd"]
+    got, gflag = K.point_madd(P, Q)
+    assert K.LAUNCHES["point_madd"] == before + 1
+    want, wflag = K.point_madd_plain(P, Q)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(gflag, wflag) and bool(gflag[1::5].all())
+
+
 def test_digit_sort_kernel_equals_stable_sort(dev):
     keys = torch.randint(0, 4097, (4, 5000), dtype=torch.int32, device=dev)
     sk, order = K.digit_sort(keys, 4097)

@@ -17,6 +17,7 @@ from zukelang_tpu.protocols import groth16_device as jgd
 from zukelang_tpu.protocols.groth16 import Groth16
 from zukelang_tpu.rng import Gen, InjectedRng
 from zukelang_tpu_torch import bench_lib
+from zukelang_tpu_torch import rng as trng
 from zukelang_tpu_torch.core import flat
 from zukelang_tpu_torch.ops import curve as C
 from zukelang_tpu_torch.ops import field as F
@@ -28,6 +29,17 @@ torch.set_num_threads(1)
 
 KEY_SCALARS = [Fr(i + 1000) for i in range(5)]
 PROVE_SCALARS = [Fr(77), Fr(88)]
+
+
+def _port_rng(scalars):
+    """The same scalar stream for the port (its own Fr class)."""
+    return trng.InjectedRng([s.n for s in scalars])
+
+
+def _b(points):
+    """Points of either package -> their compressed bytes: the port's
+    classes are its own, so points compare across packages by encoding."""
+    return [p.to_compressed_bytes() for p in points]
 
 
 def _instance():
@@ -53,9 +65,9 @@ def small():
         crs, dvk = gd.keygen_device(
             fc, mids=list(c.circuit.mids),
             ios=list(c.circuit.inputs_public | c.circuit.outputs),
-            rng=InjectedRng(KEY_SCALARS))
+            rng=_port_rng(KEY_SCALARS), device="cpu")
         proof = gd.prove_device(crs, fc, fc.pack_witness(sol),
-                                InjectedRng(PROVE_SCALARS))
+                                _port_rng(PROVE_SCALARS))
     finally:
         gd.DEFAULT_MSM_WINDOW, gd.DEFAULT_FB_WINDOW = saved
     return dict(c=c, sol=sol, proto=proto, pk=pk, vk=vk, golden=golden,
@@ -81,13 +93,13 @@ def test_proof_verifies_with_both_keys(small):
 
 def test_crs_points_match_golden_pkey(small):
     pk, crs, n = small["pk"], small["crs"], small["crs"].n
-    assert C.unpack_g1(C.affine_to_jac(crs.ti1))[:n] == pk.ti1[:n]
-    assert C.unpack_g2(C.affine_to_jac(crs.ti2))[:n] == pk.ti2[:n]
-    assert C.unpack_g1(C.affine_to_jac(crs.tiztd))[:n - 1] == pk.tiztd
+    assert _b(C.unpack_g1(C.affine_to_jac(crs.ti1))[:n]) == _b(pk.ti1[:n])
+    assert _b(C.unpack_g2(C.affine_to_jac(crs.ti2))[:n]) == _b(pk.ti2[:n])
+    assert _b(C.unpack_g1(C.affine_to_jac(crs.tiztd))[:n - 1]) == _b(pk.tiztd)
     mids = sorted(pk.ltd_mid)
-    assert (C.unpack_g1(C.affine_to_jac(crs.ltd_mid))[:len(mids)]
-            == [pk.ltd_mid[k] for k in mids])
-    assert small["dvk"].ab == small["vk"].ab
+    assert (_b(C.unpack_g1(C.affine_to_jac(crs.ltd_mid))[:len(mids)])
+            == _b([pk.ltd_mid[k] for k in mids]))
+    assert small["dvk"].ab.to_bytes() == small["vk"].ab.to_bytes()
 
 
 def _jax_style_crs():
@@ -119,17 +131,21 @@ def test_load_keypair_reads_jax_file(tmp_path):
     jgd.save_keypair(path, jcrs, jvk)
     fc = flat.flatten(_instance()[0].gates)
     assert fc.domain_size == 4
-    crs, vkey = gd.load_keypair(path, fc)
-    want = gd.crs_from_jax(jcrs)
+    crs, vkey = gd.load_keypair(path, fc, device="cpu")
+    want = gd.crs_from_jax(jcrs, device="cpu")
     for name in ("ti1", "ti2", "ltd_mid", "tiztd"):
         for a, b, j in zip(getattr(crs, name), getattr(want, name),
                            getattr(jcrs, name)):
             assert torch.equal(a, b)
             assert np.array_equal(F.to_jax(a), np.asarray(j))
     assert crs.n == 4 and np.array_equal(crs.mids_idx, jcrs.mids_idx)
-    assert crs.delta_g2 == jcrs.delta_g2 and crs.beta_g1 == jcrs.beta_g1
-    assert vkey.ab == jvk.ab and vkey.ltgm_io == jvk.ltgm_io
-    assert vkey.gm == jvk.gm and vkey.beta_g2 == jvk.beta_g2
+    for name in ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2"):
+        assert _b([getattr(crs, name), getattr(want, name)]) == _b(
+            [getattr(jcrs, name)] * 2)
+    assert vkey.ab.to_bytes() == jvk.ab.to_bytes()
+    assert {k: _b([p]) for k, p in vkey.ltgm_io.items()} == {
+        k: _b([p]) for k, p in jvk.ltgm_io.items()}
+    assert _b([vkey.gm, vkey.beta_g2]) == _b([jvk.gm, jvk.beta_g2])
 
 
 def test_load_keypair_checks_the_circuit_domain(tmp_path):
@@ -139,7 +155,7 @@ def test_load_keypair_checks_the_circuit_domain(tmp_path):
     jgd.save_keypair(path, jcrs, jvk)
     fc = flat.flatten(_instance()[0].gates)
     with pytest.raises(ValueError, match="domain"):
-        gd.load_keypair(path, fc)
+        gd.load_keypair(path, fc, device="cpu")
 
 
 def test_save_keypair_is_read_back_by_both_packages(tmp_path, small):
@@ -150,13 +166,14 @@ def test_save_keypair_is_read_back_by_both_packages(tmp_path, small):
         i: p for i, p in enumerate(small["dvk"].ltgm_io.values())})
     gd.save_keypair(path, small["crs"], dvk)
     jcrs, jvk = jgd.load_keypair(path)
-    crs, vkey = gd.load_keypair(path, small["fc"])
+    crs, vkey = gd.load_keypair(path, small["fc"], device="cpu")
     for name in ("ti1", "ti2", "ltd_mid", "tiztd"):
         for a, b, j in zip(getattr(small["crs"], name), getattr(crs, name),
                            getattr(jcrs, name)):
             assert torch.equal(a, b)
             assert np.array_equal(F.to_jax(a), np.asarray(j))
-    assert jvk.ab == small["dvk"].ab and vkey.d == small["dvk"].d
+    assert jvk.ab.to_bytes() == small["dvk"].ab.to_bytes()
+    assert vkey.d == small["dvk"].d
 
 
 @pytest.mark.parametrize("log_constraints", [5, 6])
@@ -194,14 +211,14 @@ def test_keygen_and_prove_match_jax_device(monkeypatch):
                               InjectedRng(PROVE_SCALARS))
     fc = flat.flatten(c.gates)
     crs, _ = gd.keygen_device(fc, mids=list(c.circuit.mids), ios=ios,
-                              rng=InjectedRng(KEY_SCALARS))
+                              rng=_port_rng(KEY_SCALARS), device="cpu")
     for name in ("ti1", "ti2", "ltd_mid", "tiztd"):
         for a, j in zip(getattr(crs, name), getattr(jcrs, name)):
             w = np.asarray(j).shape[-1]
             assert np.array_equal(F.to_jax(a)[..., :w], np.asarray(j))
             assert not a[..., w:].any()          # padding is infinity
-    proof = gd.prove_device(gd.crs_from_jax(jcrs), fc, fc.pack_witness(sol),
-                            InjectedRng(PROVE_SCALARS))
+    proof = gd.prove_device(gd.crs_from_jax(jcrs, device="cpu"), fc,
+                            fc.pack_witness(sol), _port_rng(PROVE_SCALARS))
     for part in ("a", "b", "c"):
         assert (getattr(proof, part).to_compressed_bytes()
                 == getattr(jproof, part).to_compressed_bytes())

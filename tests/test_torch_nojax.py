@@ -1,7 +1,9 @@
-"""The port runs without JAX: its package never imports jax, a process
-with JAX blocked runs the small-circuit keygen, prove and verify on the
-CPU, and chip_smoke.py refuses to run (non-zero exit, no result) where
-there is no CUDA device instead of falling back to the CPU."""
+"""The port stands alone: neither its package nor chip_smoke.py imports
+jax or anything of the JAX package (`zukelang_tpu`); a process with both
+blocked runs the frozen x^3 + x + 3 vectors through the port's Groth16
+and Pinocchio ZK on the CPU, byte-equal to the golden proofs;
+and chip_smoke.py refuses to run (non-zero exit, no result) where there
+is no CUDA device instead of falling back to the CPU."""
 
 import os
 import re
@@ -15,38 +17,47 @@ PKG = os.path.join(REPO, "zukelang_tpu_torch")
 _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["zukelang_tpu"] = None
 import torch
 torch.set_num_threads(1)
-import zukelang_tpu_torch
-from zukelang_tpu.core import comp, lang as L, qap as qap_mod
-from zukelang_tpu.golden.field import Fr
-from zukelang_tpu.protocols.groth16 import Groth16
-from zukelang_tpu.rng import Gen, InjectedRng
+from zukelang_tpu_torch import vectors
 from zukelang_tpu_torch.core import flat
 from zukelang_tpu_torch.ops import kernels
 from zukelang_tpu_torch.protocols import groth16_device as gd
+from zukelang_tpu_torch.protocols import pinocchio_device as pd
+from zukelang_tpu_torch.rng import InjectedRng
 
 gd.DEFAULT_MSM_WINDOW = gd.DEFAULT_FB_WINDOW = 4
-e = L.let_(L.input("input", L.SECRET, L.ty_field),
-           lambda x: L.add(L.add(L.mul(L.mul(x, x), x), x), L.fnum(3)))
-c = comp.compile_expr(e)
-q = qap_mod.build(c.gates, domain="ntt")
-_i, _l, env_code = comp.gen_inputs(c.inputs, Gen(3))
-sol = comp.code_eval_list(env_code, c.codes)
-fc = flat.flatten(c.gates)
-crs, vk = gd.keygen_device(
-    fc, mids=list(c.circuit.mids),
-    ios=list(c.circuit.inputs_public | c.circuit.outputs),
-    rng=InjectedRng([Fr(i + 1000) for i in range(5)]))
-proof = gd.prove_device(crs, fc, fc.pack_witness(sol),
-                        InjectedRng([Fr(77), Fr(88)]))
-public = {v: f for v, f in sol.items() if v not in c.circuit.mids}
-assert gd.verify(public, vk, proof)
-assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-            if sys.modules[m] is not None]
+vec = vectors.load()
+fc, wm = vec.fc, flat.pack_witness_values(vec.witness, "cpu")
+rng = lambda use: InjectedRng(vec.scalars[use])
+crs, gvk = gd.keygen_device(fc, vec.mids, vec.ios, rng("groth16_keygen"),
+                            "cpu")
+proof = gd.prove_device(crs, fc, wm, rng("groth16_prove"))
+assert gd.verify(vec.public(), gvk, proof)
+assert vectors.proof_hex(proof, "groth16") == vec.proofs["groth16"]
+# Pinocchio NonZK is left to tests/test_torch_pinocchio.py: its MSMs are
+# a subset of the ZK prove's, and the plain versions are slow
+pk, pvk = pd.keygen_device(fc, vec.mids, vec.ios, rng("pinocchio_keygen"),
+                           "cpu")
+proof = pd.prove_device(pk, fc, wm, rng("pinocchio_prove"), zk=True)
+assert pd.verify(vec.public(), pvk, proof)
+assert (vectors.proof_hex(proof, "pinocchio_zk")
+        == vec.proofs["pinocchio_zk"])
+blocked = ("jax", "zukelang_tpu")
+assert not [m for m in sys.modules if m.split(".")[0] in blocked
+            and sys.modules[m] is not None]
 assert all(v == 0 for v in kernels.LAUNCHES.values())
 print("NOJAX-OK")
 """
+
+
+def _sources():
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
 
 
 def _env():
@@ -58,15 +69,16 @@ def _env():
 
 def test_package_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    offenders = []
-    for root, _dirs, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                if pat.search(open(path).read()):
-                    offenders.append(path)
-    assert offenders == []
-    assert not pat.search(open(os.path.join(REPO, "chip_smoke.py")).read())
+    assert [p for p in _sources() if pat.search(open(p).read())] == []
+
+
+def test_port_sources_never_import_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+zukelang_tpu(\.|\s|$)", re.M)
+    assert [p for p in _sources() if pat.search(open(p).read())] == []
+    # nor load its library or switch the pairing through its variable
+    smoke = open(os.path.join(REPO, "chip_smoke.py")).read()
+    assert "libzukelang_native" not in smoke
+    assert "ZUKELANG_NATIVE_PAIRING" not in smoke
 
 
 def test_small_circuit_runs_with_jax_blocked():

@@ -1,9 +1,9 @@
 """Build `csrc/*.cu` into one shared library with nvcc and load it with ctypes.
 
 The library has a plain C interface (no PyTorch headers), so it builds in
-seconds.  It is built at first use into `build/kernels/` beside the
-package (listed in .gitignore), keyed by a hash of the sources, and
-loaded once per process.  Every C entry point takes raw device pointers
+seconds: one nvcc per source, all started together, then one link.  It
+is built at first use into `build/kernels/` beside the package (listed in
+.gitignore), keyed by a hash of the sources, and loaded once per process.  Every C entry point takes raw device pointers
 and the CUDA stream as `c_void_p`, launches on that stream and returns
 `cudaGetLastError()`; `check` raises when it is not 0.
 
@@ -70,14 +70,27 @@ def library() -> ctypes.CDLL:
     out = os.path.join(BUILD_DIR, f"libzk_kernels_{_digest()}.so")
     if not os.path.exists(out):
         t0 = time.time()
-        tmp = out + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *_sources()]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        tag = f"{_digest()}.{os.getpid()}"
+        flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+        objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+                for src in _sources()]
+        procs = [subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
         with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
-            f.write(res.stdout + res.stderr)
+            f.write("".join(logs))
+        failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(failed)[-8000:])
+        tmp = out + f".tmp{os.getpid()}"
+        res = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+                              *objs], capture_output=True, text=True)
+        for obj in objs:
+            os.remove(obj)
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stderr[-8000:])
+            raise RuntimeError("nvcc link failed:\n" + res.stderr[-8000:])
         os.replace(tmp, out)
         build_seconds = time.time() - t0
     _lib = ctypes.CDLL(out)

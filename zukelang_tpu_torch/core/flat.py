@@ -1,27 +1,30 @@
 """Flattening circuits into static-shape arrays for the torch engine.
 
 Counterpart of `zukelang_tpu/core/flat.py`, packed with numpy into the
-port's 32-bit limbs (the JAX module imports jax for its packing):
+port's 32-bit limbs:
 
-  * a variable index (sorted Vars -> columns),
+  * a variable index (sorted variables -> columns),
   * per-gate padded coefficient rows for l / r / lhs (dense (G, K) with
     K = max terms per affine): the forward matvec per gate, and
   * var-sorted nnz triplets: the transpose matvec A_k(tau) = sum_g
     coeff(k, g) * L_g(tau) per variable (keygen side).
 
 Coefficients are Montgomery-form uint32 limb arrays, (8, ...) for Fr.
+
+Two ways in: `flatten(gates)` takes any gates with the fields of the JAX
+package's `core.circuit.Gate` (`lhs`, `l`, `r`, each an affine with a
+`.m` dict from variable to a coefficient carrying its int in `.n`) and
+orders them as that package does; `from_arrays` takes the dense rows as
+plain integer arrays, with the columns 0..V-1 as the variables.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-
-from zukelang_tpu.core.circuit import Gate
-from zukelang_tpu.core.var import Var
 
 from ..ops import field as F
 from ..params import FR
@@ -29,8 +32,14 @@ from ..params import FR
 
 def pack_mont_np(values, spec=FR) -> np.ndarray:
     """Ints -> (nl, N) uint32 Montgomery limbs (host array)."""
-    return F._np_limbs([(v % spec.p) * spec.R % spec.p for v in values],
+    return F._np_limbs([(int(v) % spec.p) * spec.R % spec.p for v in values],
                        spec.nl)
+
+
+def pack_witness_values(values: Sequence[int], device=None) -> torch.Tensor:
+    """Witness ints by column -> Montgomery (nl, V+1) int32 tensor with a
+    trailing zero column (the padding target of dense rows)."""
+    return F._as_tensor(pack_mont_np(list(values) + [0]), device)
 
 
 @dataclass
@@ -45,8 +54,8 @@ class FlatSide:
 
 @dataclass
 class FlatCircuit:
-    vars_sorted: List[Var]
-    var_index: Dict[Var, int]
+    vars_sorted: List
+    var_index: Dict
     n_gates: int
     logn: int              # NTT domain size = 2^logn >= n_gates
     l: FlatSide
@@ -57,51 +66,95 @@ class FlatCircuit:
     def domain_size(self):
         return 1 << self.logn
 
-    def pack_witness(self, sol: Dict[Var, object], device=None) -> torch.Tensor:
-        """Witness dict -> Montgomery (nl, V+1) int32 tensor with a
-        trailing zero column (the padding target of dense rows)."""
-        vals = [sol[v].n for v in self.vars_sorted] + [0]
-        return F._as_tensor(pack_mont_np(vals), device)
+    def pack_witness(self, sol: Dict, device=None) -> torch.Tensor:
+        """Witness dict (variable -> value with `.n`) -> Montgomery
+        (nl, V+1) int32 tensor, see `pack_witness_values`."""
+        return pack_witness_values([sol[v].n for v in self.vars_sorted],
+                                   device)
 
 
-def _flatten_side(gates: List[Gate], pick, var_index, n_pad_col: int) -> FlatSide:
-    rows = [[(var_index[v], c.n) for v, c in sorted(pick(g).m.items(),
-                                                    key=lambda kv: kv[0])]
-            for g in gates]
-    K = max(1, max((len(r) for r in rows), default=1))
-    G = len(rows)
-    idx = np.full((G, K), n_pad_col, dtype=np.int32)
-    coefs = [[0] * K for _ in range(G)]
-    triplets = []
-    for gi, row in enumerate(rows):
-        for j, (vi, cn) in enumerate(row):
-            idx[gi, j] = vi
-            coefs[gi][j] = cn
-            triplets.append((vi, gi, cn))
+def flat_side(idx, coefs, n_pad_col: int) -> FlatSide:
+    """Dense rows -> FlatSide.  idx (G, K) var columns, `n_pad_col` where
+    a row has fewer terms; coefs (G, K) standard-form ints.  Every entry
+    that is not padding becomes a triplet, sorted by (var, gate)."""
+    idx = np.asarray(idx, dtype=np.int32)
+    G, K = idx.shape
     coef = pack_mont_np([c for row in coefs for c in row]).reshape(FR.nl, G, K)
-    triplets.sort(key=lambda t: (t[0], t[1]))
-    if not triplets:
-        triplets = [(0, 0, 0)]
-    return FlatSide(
-        idx=idx, coef=coef,
-        t_var=np.array([t[0] for t in triplets], dtype=np.int32),
-        t_gate=np.array([t[1] for t in triplets], dtype=np.int32),
-        t_coef=pack_mont_np([t[2] for t in triplets]))
+    var = idx.reshape(-1)
+    gate = np.repeat(np.arange(G, dtype=np.int32), K)
+    live = np.nonzero(var != n_pad_col)[0]
+    if not len(live):
+        return FlatSide(idx=idx, coef=coef, t_var=np.zeros(1, np.int32),
+                        t_gate=np.zeros(1, np.int32), t_coef=pack_mont_np([0]))
+    order = live[np.lexsort((gate[live], var[live]))]
+    return FlatSide(idx=idx, coef=coef, t_var=var[order], t_gate=gate[order],
+                    t_coef=np.ascontiguousarray(
+                        coef.reshape(FR.nl, G * K)[:, order]))
 
 
-def flatten(gates: List[Gate]) -> FlatCircuit:
-    from zukelang_tpu.core.circuit import gates_vars, sort_gates
+def from_arrays(n_vars: int, logn: int, l, r, lhs) -> FlatCircuit:
+    """A flat circuit over the columns 0..n_vars-1 from plain arrays: each
+    of l, r, lhs is a pair (idx (G, K), coefs (G, K)) as `flat_side`
+    takes it, padded with column n_vars."""
+    cols = list(range(n_vars))
+    sides = [flat_side(i, c, n_vars) for i, c in (l, r, lhs)]
+    return FlatCircuit(vars_sorted=cols, var_index={v: v for v in cols},
+                       n_gates=sides[0].idx.shape[0], logn=logn,
+                       l=sides[0], r=sides[1], lhs=sides[2])
+
+
+# ---------------------------------------------------------------------------
+# Gates: the JAX package's order, from the fields alone
+# ---------------------------------------------------------------------------
+
+def _affine_key(aff):
+    """The order of `core.circuit.Affine.key`: the sorted (var, coeff)
+    association list."""
+    return tuple((v.name, v.id, c.n) for v, c in sorted(aff.m.items()))
+
+
+def _gate_key(g):
+    return (_affine_key(g.lhs), _affine_key(g.l), _affine_key(g.r))
+
+
+def sort_gates(gates) -> list:
+    """Distinct gates in the reference's Gate.Set order (QAP gate ids come
+    from this order)."""
+    unique = {_gate_key(g): g for g in gates}
+    return [unique[k] for k in sorted(unique)]
+
+
+def gates_vars(gates) -> set:
+    out = set()
+    for g in gates:
+        for aff in (g.lhs, g.l, g.r):
+            out |= set(aff.m)
+    return out
+
+
+def _rows(gates, pick, var_index, n_pad_col: int):
+    rows = [sorted(pick(g).m.items(), key=lambda kv: kv[0]) for g in gates]
+    K = max(1, max((len(r) for r in rows), default=1))
+    idx = np.full((len(rows), K), n_pad_col, dtype=np.int32)
+    coefs = [[0] * K for _ in rows]
+    for gi, row in enumerate(rows):
+        for j, (v, c) in enumerate(row):
+            idx[gi, j] = var_index[v]
+            coefs[gi][j] = c.n
+    return idx, coefs
+
+
+def flatten(gates) -> FlatCircuit:
     gates = sort_gates(gates)
     vars_sorted = sorted(gates_vars(gates))
     var_index = {v: i for i, v in enumerate(vars_sorted)}
     n_gates = len(gates)
     V = len(vars_sorted)
+    sides = [flat_side(*_rows(gates, pick, var_index, V), V)
+             for pick in (lambda g: g.l, lambda g: g.r, lambda g: g.lhs)]
     return FlatCircuit(
         vars_sorted=vars_sorted,
         var_index=var_index,
         n_gates=n_gates,
         logn=max(1, (max(n_gates, 2) - 1).bit_length()),
-        l=_flatten_side(gates, lambda g: g.l, var_index, V),
-        r=_flatten_side(gates, lambda g: g.r, var_index, V),
-        lhs=_flatten_side(gates, lambda g: g.lhs, var_index, V),
-    )
+        l=sides[0], r=sides[1], lhs=sides[2])

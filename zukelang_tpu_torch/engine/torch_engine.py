@@ -19,8 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from zukelang_tpu import params as ref_params
-
+from .. import params
 from ..core import flat as flat_mod
 from ..ops import field as F
 from ..ops import ntt as ntt_mod
@@ -82,7 +81,7 @@ def _lagrange_at(logn: int, x: int, device=None) -> torch.Tensor:
     """(nl, N) Montgomery Lagrange values L_g(x) over the 2^logn domain:
     L_g(x) = (Z(x)/N) * w^g / (x - w^g)."""
     n = 1 << logn
-    r = ref_params.R
+    r = params.R
     omegas = ntt_mod._mont_powers(ntt_mod.root_for(logn), n)
     omegas = F._as_tensor(omegas, device)
     zn = (pow(x, n, r) - 1) * pow(n, -1, r) % r

@@ -5,8 +5,9 @@ branch-free: infinity is Z == 0.  A point batch is a tuple (X, Y, Z) of
 Montgomery-form coordinates, `(12, N)` for G1 and `(2, 12, N)` for G2; an
 affine batch is (X, Y) with (0, 0) marking infinity.
 
-`point_add` and `point_double` are kernel K2 (`ops.kernels`).  The other
-functions compose field operations, whose products are K1.
+`point_add` and `point_double` are kernel K2, `point_madd` is K3 with a
+K2 fix-up (`ops.kernels`).  The other functions compose field
+operations, whose products are K1.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from zukelang_tpu import params as ref_params
-
+from .. import params
+from ..golden.curve import G1, G2
+from ..golden.field import Fq, Fq2
 from ..params import FQ
 from . import field as F
 from . import kernels as K
@@ -43,14 +45,15 @@ def point_neg(p: Point) -> Point:
 
 
 def point_madd(p: Point, q: AffinePoint) -> Point:
-    """Jacobian p plus affine q ((0, 0) = infinity), madd-2007-bl from
-    field operations; lanes with p == q take the doubling."""
-    o = OPS[K.group_of(p[0])]
-    X3, Y3, Z3, same = K._madd(p, q, o)
+    """Jacobian p plus affine q ((0, 0) = infinity): K3, then, only when
+    some lane hit the doubling case (p == q), K2's doubling of p in the
+    flagged lanes (`curve_jax._point_madd_impl`, :242-265)."""
+    (X3, Y3, Z3), same = K.point_madd(p, q)
     if bool(same.any()):
         dX, dY, dZ = point_double(p)
-        X3, Y3, Z3 = (o.sel(same, dX, X3), o.sel(same, dY, Y3),
-                      o.sel(same, dZ, Z3))
+        X3, Y3, Z3 = (K.select_lanes(same, dX, X3),
+                      K.select_lanes(same, dY, Y3),
+                      K.select_lanes(same, dZ, Z3))
     return X3, Y3, Z3
 
 
@@ -112,9 +115,7 @@ def pack_g2(points, device=None) -> Point:
 
 def unpack_g1(p: Point):
     """Limb batch -> golden affine G1 points."""
-    from zukelang_tpu.golden.curve import G1
-    from zukelang_tpu.golden.field import Fq
-    P = ref_params.P
+    P = params.P
     X, Y, Z = (F.unpack_mont(c, FQ) for c in p)
     out = []
     for x, y, z in zip(X, Y, Z):
@@ -128,8 +129,6 @@ def unpack_g1(p: Point):
 
 
 def unpack_g2(p: Point):
-    from zukelang_tpu.golden.curve import G2
-    from zukelang_tpu.golden.field import Fq2
     comps = [F.unpack_mont(c[i], FQ) for c in p for i in range(2)]
     out = []
     for x0, x1, y0, y1, z0, z1 in zip(*comps):

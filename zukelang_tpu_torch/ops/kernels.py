@@ -32,8 +32,8 @@ from .. import build
 from ..params import FQ, FR, FieldSpec
 from . import field as F
 
-KERNELS = ("mont_mul", "point_add", "point_double", "digit_sort",
-           "bucket_scan_rows", "jac_scan", "weighted_chunk_sums")
+KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
+           "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -49,6 +49,7 @@ _ARGTYPES = {
     "zk_mont_mul": [_I32, _P, _P, _P, _I64, _P],
     "zk_point_add": [_I32] + [_P] * 9 + [_I64, _P],
     "zk_point_double": [_I32] + [_P] * 6 + [_I64, _P],
+    "zk_point_madd": [_I32] + [_P] * 9 + [_I64, _P],
     "zk_digit_sort": [_P, _P, _P, _I64, _I64, _I32, _P],
     "zk_bucket_scan_rows": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64,
                             _I32, _P],
@@ -369,6 +370,46 @@ def point_double(p):
                 _I32(int(g2)), *(build.ptr(x) for x in ins),
                 *(build.ptr(x) for x in outs), _I64(n))
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# K3  point_madd
+# Replaces point_madd_pallas / point_madd_pallas_g2 (pallas_kernels.py:663,
+# :680; kernels _point_madd_kernel / _point_madd_kernel2 :594, :615).  One
+# thread per element runs madd-2007-bl (11 field products) in registers,
+# as K2 does.  Bound: the field products; the batches on its path are
+# small (fixed-base keygen batches under 128 elements, one launch per
+# window), so each launch is mostly launch latency.  The flag marks the
+# doubling-degenerate lanes (P == Q, both finite), whose output is the
+# formula's garbage exactly as in the Pallas kernel; `ops.curve.point_madd`
+# repairs them with K2's doubling.
+# ---------------------------------------------------------------------------
+
+def point_madd_plain(p, q):
+    """Jacobian p + affine q -> ((X3, Y3, Z3), same), as `point_madd`."""
+    X3, Y3, Z3, same = _madd(p, q, _OPS[group_of(p[0])])
+    return (X3, Y3, Z3), same
+
+
+def point_madd(p, q):
+    """Jacobian p (3 coordinates) + affine q (2; (0, 0) = infinity) ->
+    ((X3, Y3, Z3), same), `same` an (N,) bool mask of the lanes that hit
+    the doubling case."""
+    if p[0].device.type == "cpu":
+        return point_madd_plain(p, q)
+    g2 = group_of(p[0]) == "g2"
+    ins = [x.contiguous() for x in (*p, *q)]
+    _cuda_args(*ins)
+    n = ins[0].shape[-1]
+    if any(x.shape != ins[0].shape for x in ins):
+        raise ValueError("point_madd coordinate shapes differ")
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    flag = torch.empty(n, dtype=torch.int32, device=ins[0].device)
+    if n:
+        _launch("point_madd", "zk_point_madd", ins[0].device, _I32(int(g2)),
+                *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
+                build.ptr(flag), _I64(n))
+    return tuple(outs), flag != 0
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ Counterpart of `zukelang_tpu/ops/msm.py`, v2 pipeline only:
     scan (K7), bucket assembly (K2), the weighted bucket reduction (K6,
     K2) and the window combine (K2, K7).
   * `fixed_base_mul`: batched g*s from a window table of multiples of the
-    generator (built with K7), summed by K5 in tails-only mode.
+    generator (built with K7), summed by K5 in tails-only mode from 128
+    elements, by a window loop of K3 mixed adds below.
 
 Where the JAX package scans over windows, this module runs each stage
 once over all windows: the windows' chunk lanes sit side by side in one
@@ -27,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from ..golden.curve import G1, G2
 from ..params import FQ, FR
 from . import curve as C
 from . import field as F
@@ -449,7 +451,6 @@ def _fixed_base_table_device(group: str, c: int, device) -> C.AffinePoint:
     window bases come from host doublings; each block of multiples is one
     segmented prefix scan (K7) of the repeated base, shifted by one and
     batch-normalized to affine ((0, 0) at d = 0)."""
-    from zukelang_tpu.golden.curve import G1, G2
     gen = G1.generator() if group == "g1" else G2.generator()
     n_windows = -(-256 // c)
     per = 1 << c
@@ -478,24 +479,36 @@ def fixed_base_table_device(group: str, c: int, device) -> C.AffinePoint:
 
 # Elements per K5 launch: bounds the gathered row stream (W * SLICE rows).
 _FB_SLICE = 1 << 17
-_FB_MIN = 128   # smaller batches are padded with zero scalars
+# Batches from this size take the rows path (K5); smaller ones the window
+# loop of K3 mixed adds, as in the JAX package (`msm.py:1302-1314`).
+_FB_ROWS_MIN = 128
 
 
 def fixed_base_mul(scalars_std: torch.Tensor, group: str = "g1", c: int = 8,
                    table: C.AffinePoint = None) -> C.Point:
-    """[g * s for s in scalars]: window-table row gathers summed by K5 in
-    tails-only mode, one segment per element (chunk = W windows).  Every
-    batch takes this path; batches under 128 elements are padded."""
+    """[g * s for s in scalars] from the affine window table: from 128
+    elements, row gathers summed by K5 in tails-only mode, one segment per
+    element (chunk = W windows); below, W - 1 K3 mixed adds of each
+    window's table entry into the running sum."""
     dev = scalars_std.device
     if table is None:
         table = fixed_base_table_device(group, c, str(dev))
     tX, tY = table
     digits = _scalars_to_windows(scalars_std, c)      # (W, n)
-    n = digits.shape[1]
-    npad = max(n, _FB_MIN)
-    if npad != n:
-        digits = torch.nn.functional.pad(digits, (0, npad - n))
-    return tuple(v[..., :n] for v in _fixed_base_rows(tX, tY, digits, c, group))
+    if digits.shape[1] >= _FB_ROWS_MIN:
+        return _fixed_base_rows(tX, tY, digits, c, group)
+    return _fixed_base_madd(tX, tY, digits, c)
+
+
+def _fixed_base_madd(tX, tY, digits: torch.Tensor, c: int) -> C.Point:
+    """The window loop: acc = T[0][d_0], then acc += T[w][d_w] (K3) for
+    w = 1..W-1; zero digits fetch the (0, 0) entry (infinity)."""
+    idx = digits.to(torch.int64) + (torch.arange(
+        digits.shape[0], dtype=torch.int64, device=digits.device) << c)[:, None]
+    acc = C.affine_to_jac((tX[..., idx[0]], tY[..., idx[0]]))
+    for w in range(1, digits.shape[0]):
+        acc = C.point_madd(acc, (tX[..., idx[w]], tY[..., idx[w]]))
+    return acc
 
 
 def _fixed_base_rows(tX, tY, digits: torch.Tensor, c: int,

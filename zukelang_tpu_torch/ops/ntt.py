@@ -15,8 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from zukelang_tpu import params as ref_params
-
+from .. import params
 from ..params import FR
 from . import field as F
 
@@ -24,15 +23,15 @@ from . import field as F
 @functools.lru_cache(maxsize=None)
 def root_for(logn: int, inverse: bool = False) -> int:
     """Primitive 2^logn-th root of unity in Fr."""
-    assert 0 <= logn <= ref_params.FR_TWO_ADICITY
-    w = pow(ref_params.FR_ROOT_OF_UNITY,
-            1 << (ref_params.FR_TWO_ADICITY - logn), ref_params.R)
-    return pow(w, -1, ref_params.R) if inverse else w
+    assert 0 <= logn <= params.FR_TWO_ADICITY
+    w = pow(params.FR_ROOT_OF_UNITY,
+            1 << (params.FR_TWO_ADICITY - logn), params.R)
+    return pow(w, -1, params.R) if inverse else w
 
 
 def _mont_powers(base: int, count: int) -> np.ndarray:
     """(nl, count) uint32 Montgomery limbs of base^0 .. base^(count-1)."""
-    r = ref_params.R
+    r = params.R
     vals, acc = [], 1
     for _ in range(count):
         vals.append(acc * FR.R % r)
@@ -81,7 +80,7 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         x[:, iu] = F.add(u, v, FR)
         x[:, iv] = F.sub(u, v, FR)
     if inverse:
-        x = F.mont_mul(x, F.const_mont(pow(n, -1, ref_params.R), n, FR, dev),
+        x = F.mont_mul(x, F.const_mont(pow(n, -1, params.R), n, FR, dev),
                        FR)
     return x
 
@@ -95,12 +94,12 @@ def intt(x: torch.Tensor) -> torch.Tensor:
 # vanishes on the domain itself.
 # ---------------------------------------------------------------------------
 
-_COSET_G = ref_params.FR_GENERATOR
+_COSET_G = params.FR_GENERATOR
 
 
 @functools.lru_cache(maxsize=None)
 def _coset_powers(logn: int, inverse: bool, device) -> torch.Tensor:
-    g = pow(_COSET_G, -1, ref_params.R) if inverse else _COSET_G
+    g = pow(_COSET_G, -1, params.R) if inverse else _COSET_G
     return F._as_tensor(_mont_powers(g, 1 << logn), device)
 
 
@@ -118,5 +117,5 @@ def coset_intt(x: torch.Tensor) -> torch.Tensor:
 
 def zh_on_coset_inv(logn: int) -> int:
     """1 / Z(g*w^i) for Z = x^N - 1: the constant g^N - 1 on the coset."""
-    z = (pow(_COSET_G, 1 << logn, ref_params.R) - 1) % ref_params.R
-    return pow(z, -1, ref_params.R)
+    z = (pow(_COSET_G, 1 << logn, params.R) - 1) % params.R
+    return pow(z, -1, params.R)

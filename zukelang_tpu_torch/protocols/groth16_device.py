@@ -5,12 +5,13 @@ prover state live on the device as limb tensors; only the three proof
 points and the small verifying key come back to the host.  The scalars are
 drawn in the reference's order (alpha, beta, gamma, delta, tau; then r,
 s), so under the same injected rng the proof is byte-equal to the JAX
-package's and to the golden `zukelang_tpu.protocols.groth16.Groth16`.
+package's and to its golden `Groth16` (`zukelang_tpu/protocols/groth16.py`).
 
 Keygen: the transpose matvec at Lagrange(tau), then fixed-base batches
-(K5 tails-only over a K7-built window table) and `to_affine`.  Prove: the
-witness reduction (NTT pipeline), one batch of four G1 MSMs and one G2
-MSM.  Verify: host pairings (`zukelang_tpu.pairing`).
+(`ops.msm.fixed_base_mul`: K5 tails-only from 128 elements, K3 mixed adds
+below) and `to_affine`.  Prove: the witness reduction (NTT pipeline), one
+batch of four G1 MSMs and one G2 MSM.  Verify: host pairings (`pairing`,
+the port's native library).
 """
 
 from __future__ import annotations
@@ -22,17 +23,24 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from zukelang_tpu import params as ref_params
-from zukelang_tpu import serialize as ser
-from zukelang_tpu.golden.curve import G1, G2, GT
-from zukelang_tpu.pairing import pairing
-
+from .. import params
+from .. import serialize as ser
 from ..core import flat as flat_mod
 from ..engine import torch_engine as te
+from ..golden.curve import G1, G2, GT
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as msm_mod
+from ..pairing import pairing
 from ..params import FR
+
+
+@dataclass
+class Proof:
+    """groth16.ml:110-114: A in G1, B in G2, C in G1."""
+    a: G1
+    b: G2
+    c: G1
 
 
 @dataclass
@@ -71,10 +79,21 @@ DEFAULT_FB_WINDOW = 16
 _CRS_POINTS = ("ti1", "ti2", "ltd_mid", "tiztd")
 
 
-def _np2(n: int) -> int:
-    """Padded width: a power of two, at least 64 (two scan chunks of 32),
-    so every MSM takes the v2 path."""
-    return 1 << max(6, (n - 1).bit_length())
+def _np2(n: int, min_log: int = 6) -> int:
+    """Padded width: a power of two, at least 2^min_log.  MSMs take the
+    default 64 (two scan chunks of 32, so every MSM takes the v2 path);
+    fixed-base batches pad as the JAX package does, to at least 16
+    (`_fixed_base_std`)."""
+    return 1 << max(min_log, (n - 1).bit_length())
+
+
+FB_MIN_LOG = 4   # fixed-base batches: at least 16 elements
+
+
+def _device(device) -> torch.device:
+    """Where an entry point runs: the card unless the caller names
+    another device (the tests pass "cpu")."""
+    return torch.device("cuda" if device is None else device)
 
 
 def _pad_scalars(s: torch.Tensor, n: int) -> torch.Tensor:
@@ -100,24 +119,37 @@ def _msm_device_deferred(points: C.AffinePoint, scalars_mont: torch.Tensor,
 
 
 def _fixed_base_std(scalars, group: str, device) -> C.Point:
-    n = _np2(len(scalars))
+    n = _np2(len(scalars), FB_MIN_LOG)
     S = F.pack(list(scalars) + [0] * (n - len(scalars)), FR, device)
     return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
 
 
 def _fixed_base_mont(scalars_mont: torch.Tensor, group: str) -> C.Point:
-    n = _np2(scalars_mont.shape[1])
+    n = _np2(scalars_mont.shape[1], FB_MIN_LOG)
     S = F.from_mont(_pad_scalars(scalars_mont, n), FR)
     return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
 
 
+def _affine_many(parts: Sequence[C.Point]) -> list:
+    """Jacobian batches of one group -> their affine batches, with one
+    batched inversion (`to_affine`) over all of them."""
+    widths = [p[0].shape[-1] for p in parts]
+    aff = C.to_affine(tuple(torch.cat([p[i] for p in parts], dim=-1)
+                            for i in range(3)))
+    offs = np.cumsum([0] + widths)
+    return [tuple(x[..., offs[k]:offs[k + 1]].contiguous() for x in aff)
+            for k in range(len(parts))]
+
+
 def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
                   rng, device=None) -> Tuple[DeviceCRS, DeviceVKey]:
-    """Groth16 setup on `device`.  mids/ios are the circuit partition; the
-    trapdoor is drawn as alpha, beta, gamma, delta, tau."""
+    """Groth16 setup on `device` (default: the card).  mids/ios are the
+    circuit partition; the trapdoor is drawn as alpha, beta, gamma,
+    delta, tau."""
+    device = _device(device)
     alpha, beta, gamma, delta, tau = (rng.fr() for _ in range(5))
     n = fc.domain_size
-    r = ref_params.R
+    r = params.R
 
     # per-variable evaluations at tau (transpose matvec)
     lag = te._lagrange_at(fc.logn, tau.n, device)
@@ -147,15 +179,10 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
     tizd = [ti[i] * ztd % r for i in range(n - 1)]
 
     # the three G1 tables share one batched inversion in to_affine
-    g1_parts = (_fixed_base_std(ti, "g1", device),
-                _fixed_base_std(tizd, "g1", device),
-                _fixed_base_mont(scaled(mids_idx, dinv), "g1"))
-    widths = [p[0].shape[-1] for p in g1_parts]
-    g1_aff = C.to_affine(tuple(torch.cat([p[i] for p in g1_parts], dim=-1)
-                               for i in range(3)))
-    ti1, tiztd, ltd_mid = (
-        tuple(x[..., sum(widths[:k]):sum(widths[:k + 1])].contiguous()
-              for x in g1_aff) for k in range(3))
+    ti1, tiztd, ltd_mid = _affine_many(
+        (_fixed_base_std(ti, "g1", device),
+         _fixed_base_std(tizd, "g1", device),
+         _fixed_base_mont(scaled(mids_idx, dinv), "g1")))
     ti2 = C.to_affine(_fixed_base_std(ti, "g2", device))
     ltgm_io_pts = C.unpack_g1(_fixed_base_mont(scaled(ios_idx, ginv), "g1"))
 
@@ -175,11 +202,11 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
 def prove_device(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
                  witness_mont: torch.Tensor, rng):
     """Groth16 prove (groth16.ml:123-161).  witness_mont: (8, V+1)
-    Montgomery witness on the CRS's device (flat.pack_witness layout)."""
-    from zukelang_tpu.protocols.groth16 import Proof
-
+    Montgomery witness (flat.pack_witness layout), moved to the CRS's
+    device."""
     r_sc = rng.fr()
     s_sc = rng.fr()
+    witness_mont = witness_mont.to(crs.ti1[0].device)
     a_comb, b_comb, h = te.run_witness_reduction(fc, witness_mont)
 
     n = crs.n
@@ -220,14 +247,23 @@ def verify(public: Dict, vkey: DeviceVKey, proof) -> bool:
 # Keypair files: the JAX package's save_keypair .npz format (16-bit limbs)
 # ---------------------------------------------------------------------------
 
+def host_point(p):
+    """A host point of either package -> this package's, through its
+    compressed bytes (48 for G1, 96 for G2)."""
+    raw = p.to_compressed_bytes()
+    return (G1 if len(raw) == 48 else G2).of_compressed_bytes(raw)
+
+
 def crs_from_jax(jcrs, device=None) -> DeviceCRS:
-    """A JAX-package DeviceCRS (its arrays read as numpy) -> this port's."""
+    """A JAX-package DeviceCRS (its arrays read as numpy, its host points
+    through their bytes) -> this port's, on `device` (default: the card)."""
+    device = _device(device)
     pts = {name: C.from_jax(tuple(np.asarray(x) for x in getattr(jcrs, name)),
                             device) for name in _CRS_POINTS}
-    return DeviceCRS(alpha_g1=jcrs.alpha_g1, beta_g1=jcrs.beta_g1,
-                     beta_g2=jcrs.beta_g2, delta_g1=jcrs.delta_g1,
-                     delta_g2=jcrs.delta_g2, mids_idx=np.asarray(jcrs.mids_idx),
-                     n=int(jcrs.n), **pts)
+    return DeviceCRS(
+        **{k: host_point(getattr(jcrs, k)) for k in
+           ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")},
+        mids_idx=np.asarray(jcrs.mids_idx), n=int(jcrs.n), **pts)
 
 
 def _crs_arrays(crs: DeviceCRS) -> dict:
@@ -261,8 +297,10 @@ def save_keypair(path: str, crs: DeviceCRS, vkey: DeviceVKey) -> None:
 
 
 def load_crs(path: str, fc: flat_mod.FlatCircuit, device=None) -> DeviceCRS:
-    """Read a keypair file's proving key, checked against the circuit:
-    its domain size and witness columns must match `fc`."""
+    """Read a keypair file's proving key onto `device` (default: the
+    card), checked against the circuit: its domain size and witness
+    columns must match `fc`."""
+    device = _device(device)
     with np.load(path) as z:
         n = int(z["n"][0])
         if n != fc.domain_size:
