@@ -19,9 +19,24 @@ Phases (any failure raises and the script exits non-zero):
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
-     and one more ZK prove, every kernel launch counted.
+     and one more ZK prove, every kernel launch counted;
+  6. the MSM window profile at 2^18, c = 14, G1 (`profile_msm`): every
+     stage, then `window_program` over all 19 windows of the signed
+     digits, combined on the host (sum of 2^(cw) W_w) and held equal to
+     `msm_staged` on the same bases and scalars (the K8 route against the
+     K5/K6 route); at 2^10 both are also held equal to golden `G1.dot`;
+     `profile_msm` holds its K3 phase 1 and its log-depth carry scan
+     against the K8 and K7 route; then every kernel the window program
+     launches is checked against its plain version on the path's own
+     inputs: K4 on the 2^18 window (beside the stable `torch.sort`), K8,
+     K3 at one step of the 8192 chunk lanes, K7 over the 8192 chunk tails
+     (K = 32, segmented) and over the 8256 padded buckets (K = 64), and K2
+     at those two widths;
+  7. the looped-product probe at 2^20 Fq (`probe_looped`): its output
+     equal to K1's, both timed, the nvcc and ptxas figures of both
+     sources; then the looped kernel against its plain version there.
 Phases 4 and 5 also print the launches of one prove.
-Each path of phases 4 and 5 starts from zeroed counts; every kernel of
+Each path of phases 4 to 7 starts from zeroed counts; every kernel of
 the path must have launched in it, and K3 in both keygens.  Then one JSON
 line with the kernel summaries, the card line, and the last line
 {"ok": true, "device": {...}}.
@@ -45,6 +60,9 @@ sys.modules["zukelang_tpu"] = None  # and so does any import of the JAX package
 
 LOG_CONSTRAINTS = 16        # the bench headline groth16_prove_2^16
 PIN_LOG_CONSTRAINTS = 14    # the JAX bench's pinocchio_prove_2^14
+WINDOW_LOG, WINDOW_C = 18, 14   # the JAX MSM profilers' window
+GOLDEN_LOG = 10             # the window route against golden G1.dot
+PROBE_LOG = 20              # the JAX looped-kernel probe's size
 
 # kernel -> (its CUDA source, the Pallas entry point it replaces)
 REPLACES = {
@@ -64,7 +82,19 @@ REPLACES = {
                  "zukelang_tpu/ops/pallas_kernels.py:986"),
     "weighted_chunk_sums": ("zukelang_tpu_torch/csrc/weighted_sums.cu",
                             "zukelang_tpu/ops/pallas_kernels.py:1455"),
+    "bucket_scan": ("zukelang_tpu_torch/csrc/bucket_scan.cu",
+                    "zukelang_tpu/ops/pallas_kernels.py:807"),
+    "mont_mul_looped": ("zukelang_tpu_torch/csrc/mont_mul_looped.cu",
+                        "scripts/probe_looped_kernel.py:29"),
 }
+
+# the kernels each path must launch
+PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
+                 "digit_sort", "bucket_scan_rows", "jac_scan",
+                 "weighted_chunk_sums")
+WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
+                  "point_madd", "mont_mul")
+PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
 
 # The least time the card could take: bytes over the HBM rate, and limb
 # products over the integer rate.  NVIDIA's data sheet gives no 32-bit
@@ -93,20 +123,6 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-def _timed(fn, reps: int) -> float:
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
 
 def _max_err(a, b) -> int:
     """Largest |difference| of the uint32 words (or ints) of two results."""
@@ -177,6 +193,80 @@ def _wsum_adds(inf):
     return adds
 
 
+# kernel name -> rows of its checks: err, ms, plain_ms, bound, library_ms
+RESULTS = {}
+
+
+def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
+    """Hold a kernel call against its plain version, time both (and the
+    library call; `timing.time_ms`, mean of `reps` after a warm-up), and
+    keep the row.  work(got) -> (bytes, operations)."""
+    import torch
+    from zukelang_tpu_torch.timing import time_ms
+    dev = torch.device("cuda:0")
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    ms = time_ms(kern, dev, reps, "mean")[0]
+    plain_ms = time_ms(plain, dev, plain_reps, "mean")[0]
+    lib_ms = (time_ms(library, dev, reps, "mean")[0]
+              if library is not None else None)
+    bound_ms, bound_by = _bound(*work(got))
+    RESULTS.setdefault(name, []).append(dict(
+        err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms))
+    log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
+        + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with plain")
+
+
+def _add_work(group, P, Q):
+    """work(got) of a K2 add (add-2007-bl): 16 coordinate products per
+    lane with both operands finite, 15 where they are equal (8 + the
+    doubling's 7)."""
+    import torch
+    finite = ~_zero_coord(P[2]) & ~_zero_coord(Q[2])
+    n = P[0].shape[-1]
+    equal = torch.stack([(a == b).reshape(-1, n).all(0)
+                         for a, b in zip(P, Q)]).all(0)
+    products = int(16 * (finite & ~equal).sum() + 15 * (finite & equal).sum())
+    return lambda got: (_nbytes(P, Q, got), _fq_ops(group, products))
+
+
+def _madd_work(group, P, Qa):
+    """work(got) of a K3 madd: 11 coordinate products per lane with both
+    operands finite."""
+    q_inf = _zero_coord(Qa[0]) & _zero_coord(Qa[1])
+    lanes = int((~_zero_coord(P[2]) & ~q_inf).sum())
+    return lambda got: (_nbytes(P, Qa, got), _fq_ops(group, 11 * lanes))
+
+
+def _jac_scan_work(group, P, K, seg):
+    """work(got) of a K7 scan: 16 coordinate products per full add."""
+    import torch
+    inf = _zero_coord(P[2]).reshape(-1, K).t()            # (K, M)
+    restart = torch.zeros_like(inf)
+    restart[0] = True
+    if seg is not None:
+        sk = seg.reshape(-1, K).t()
+        restart[1:] = sk[1:] != sk[:-1]
+    adds = _scan_adds(inf, restart)
+    return lambda got: (_nbytes(P, seg, got), _fq_ops(group, 16 * adds))
+
+
+def _k8_work(points, seg, K, group):
+    """work(got) of a K8 call: 11 coordinate products per continuing step
+    with both operands finite."""
+    inf = (_zero_coord(points[0]) & _zero_coord(points[1])).reshape(-1, K).t()
+    sk = seg.reshape(-1, K).t()
+    restart = sk != sk.roll(1, 0)
+    restart[0] = True
+    madds = _scan_adds(inf, restart)
+    return lambda got: (_nbytes(points, seg, got), _fq_ops(group, 11 * madds))
+
+
 def kernel_checks(dev, rng: random.Random):
     import torch
     from zukelang_tpu_torch.ops import field as F
@@ -196,26 +286,6 @@ def kernel_checks(dev, rng: random.Random):
         Z[..., ::inf_every] = 0                      # infinities
         return X, Y, Z
 
-    results = {}
-
-    def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
-        """work(got) -> (bytes, operations) of this call."""
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = _max_err(got, want)
-        ms = _timed(kern, reps)
-        plain_ms = _timed(plain, plain_reps)
-        lib_ms = _timed(library, reps) if library is not None else None
-        bound_ms, bound_by = _bound(*work(got))
-        results.setdefault(name, []).append(dict(
-            err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms))
-        log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
-            + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
-        if err != 0:
-            raise AssertionError(f"{name}: kernel disagrees with plain")
-
     n = 1 << 16
     for spec in (FR, FQ):
         a, b = rand_field(spec, n), rand_field(spec, n)
@@ -223,6 +293,13 @@ def kernel_checks(dev, rng: random.Random):
         record("mont_mul", lambda: K.mont_mul(a, b, spec),
                lambda: K.mont_mul_plain(a, b, spec),
                lambda got: (_nbytes(a, b, got), n * PRODUCTS[spec.name]))
+        log(f"mont_mul_looped {spec.name} (nl, 2^16)")
+        record("mont_mul_looped", lambda: K.mont_mul_looped(a, b, spec),
+               lambda: K.mont_mul_plain(a, b, spec),
+               lambda got: (_nbytes(a, b, got), n * PRODUCTS[spec.name]))
+        if not torch.equal(K.mont_mul_looped(a, b, spec),
+                           K.mont_mul(a, b, spec)):
+            raise AssertionError("mont_mul_looped: differs from K1")
 
     n2 = 1 << 12
     for group in ("g1", "g2"):
@@ -237,16 +314,9 @@ def kernel_checks(dev, rng: random.Random):
         Q[1][..., 2::5] = negY[..., 2::5]
         Q[2][..., 3::5] = 0
         Q = tuple(Q)
-        finite = ~_zero_coord(P[2]) & ~_zero_coord(Q[2])
-        equal = torch.stack([(a == b).reshape(-1, n2).all(0)
-                             for a, b in zip(P, Q)]).all(0)
-        # add-2007-bl: 16 products, 15 where P == Q (8 + the doubling's 7)
-        add_products = int(16 * (finite & ~equal).sum()
-                           + 15 * (finite & equal).sum())
         log(f"K2 point_add / point_double {group} (2^12)")
         record("point_add", lambda: K.point_add(P, Q),
-               lambda: K.point_add_plain(P, Q),
-               lambda got: (_nbytes(P, Q, got), _fq_ops(group, add_products)),
+               lambda: K.point_add_plain(P, Q), _add_work(group, P, Q),
                plain_reps=1)
         record("point_double", lambda: K.point_double(P),
                lambda: K.point_double_plain(P),
@@ -275,13 +345,10 @@ def kernel_checks(dev, rng: random.Random):
             q_inf = _zero_coord(qx) & _zero_coord(qy)
             if not (bool(p_inf.any()) and bool(q_inf.any())):
                 raise AssertionError("point_madd: no infinity lanes")
-            madd_lanes = int((~p_inf & ~q_inf).sum())
             log(f"K3 point_madd {group} ({nm} lanes)")
             record("point_madd", lambda: K.point_madd(Pm, Qa),
                    lambda: K.point_madd_plain(Pm, Qa),
-                   lambda got: (_nbytes(Pm, Qa, got),
-                                _fq_ops(group, 11 * madd_lanes)),
-                   plain_reps=1)
+                   _madd_work(group, Pm, Qa), plain_reps=1)
             _got, flag = K.point_madd(Pm, Qa)
             if not bool(flag[1::5].all()) or bool(flag[2::5].any()):
                 raise AssertionError("point_madd: doubling flag wrong")
@@ -329,26 +396,48 @@ def kernel_checks(dev, rng: random.Random):
         P = rand_points(group, n7)
         seg = torch.cumsum(torch.randint(0, 2, (n7,), device=dev), 0).to(
             torch.int32)
-        inf = _zero_coord(P[2]).reshape(-1, 32).t()          # (K, M)
         for s in (None, seg):
-            restart = torch.zeros_like(inf)
-            restart[0] = True
-            if s is not None:
-                sk_ = s.reshape(-1, 32).t()
-                restart[1:] = sk_[1:] != sk_[:-1]
-            adds = _scan_adds(inf, restart)
             log(f"K7 jac_scan {group} (2^15, K = 32, seg={s is not None})")
             record("jac_scan", lambda: K.jac_scan(P, 32, s),
                    lambda: K.jac_scan_plain(P, 32, s),
-                   lambda got: (_nbytes(P, s, got),
-                                _fq_ops(group, 16 * adds)), plain_reps=1)
+                   _jac_scan_work(group, P, 32, s), plain_reps=1)
+        inf = _zero_coord(P[2]).reshape(-1, 32).t()          # (K, M)
         adds = _wsum_adds(inf.flip(0))
         log(f"K6 weighted_chunk_sums {group} (2^15, K = 32)")
         record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(P, 32),
                lambda: K.weighted_chunk_sums_plain(P, 32),
                lambda got: (_nbytes(P, got), _fq_ops(group, 16 * adds)),
                plain_reps=1)
-    return results
+
+    # K8 on the flat layout: random segments, affine infinity at step 5
+    # of every 13th lane, and in every 11th lane a segment that starts at
+    # step 6 and repeats that point at step 7 (the doubling case)
+    n8, K8 = 1 << 16, 32
+    M8 = n8 // K8
+    lanes = torch.arange(M8, device=dev) * K8
+    want_flag = torch.zeros(M8, dtype=torch.bool, device=dev)
+    want_flag[::11] = True
+    for group in ("g1", "g2"):
+        X8, Y8 = rand_coord(group, n8), rand_coord(group, n8)
+        inf_cols, dup = lanes[::13] + 5, lanes[::11] + 6
+        X8[..., inf_cols] = 0
+        Y8[..., inf_cols] = 0
+        X8[..., dup + 1] = X8[..., dup]
+        Y8[..., dup + 1] = Y8[..., dup]
+        steps = torch.randint(0, 2, (n8,), device=dev)
+        steps[dup] = 1
+        steps[dup + 1] = 0
+        seg8 = torch.cumsum(steps, 0).to(torch.int32)
+        pts8 = (X8, Y8)
+        log(f"K8 bucket_scan {group} (2^16, K = 32)")
+        record("bucket_scan", lambda: K.bucket_scan(pts8, seg8, K8, group),
+               lambda: K.bucket_scan_plain(pts8, seg8, K8, group),
+               _k8_work(pts8, seg8, K8, group), plain_reps=1)
+        _got, flag = K.bucket_scan(pts8, seg8, K8, group)
+        if not torch.equal(flag, want_flag):
+            raise AssertionError("bucket_scan: the flags are not the "
+                                 "constructed collision lanes")
+    return RESULTS
 
 
 # ---------------------------------------------------------------------------
@@ -379,12 +468,13 @@ def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def _check_launches(path: str, counts: dict, keygen_madds: int) -> None:
+def _check_launches(path: str, counts: dict, required,
+                    keygen_madds: int = None) -> None:
     log(f"launch counts over the {path} run: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{path} never launched: {missing}")
-    if keygen_madds <= 0:
+    if keygen_madds is not None and keygen_madds <= 0:
         raise AssertionError(f"{path}: K3 did not launch in keygen")
 
 
@@ -441,7 +531,7 @@ def groth16_path(dev, log_constraints: int):
     log(f"launches per prove: {per_prove}")
     if not ok:
         raise AssertionError("groth16: proof does not verify")
-    _check_launches("groth16", counts, keygen_madds)
+    _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds)
     return counts, per_prove
 
 
@@ -486,8 +576,146 @@ def pinocchio_path(dev, log_constraints: int):
     log(f"launches per NonZK prove: {nonzk_per_prove}")
     if not ok:
         raise AssertionError("pinocchio: NonZK proof does not verify")
-    _check_launches("pinocchio", counts, keygen_madds)
+    _check_launches("pinocchio", counts, PROVE_KERNELS, keygen_madds)
     return counts, per_prove
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the window profile and the looped-product probe
+# ---------------------------------------------------------------------------
+
+def _windows_combined(points, digits, c: int):
+    """`window_program` over every window, combined on the host as golden
+    points: sum_w 2^(cw) W_w (Horner from the top window)."""
+    from zukelang_tpu_torch.golden.curve import G1
+    from zukelang_tpu_torch.ops import curve as C
+    from zukelang_tpu_torch.ops import msm
+    run = msm.window_program("g1", c, affine=True)
+    ws = [C.unpack_g1(run(points, digits[w]))[0]
+          for w in range(digits.shape[0])]
+    acc = G1.zero()
+    for w in reversed(ws):
+        acc = acc * (1 << c) + w
+    return acc
+
+
+def window_path(dev, logn: int, c: int):
+    import torch
+    from zukelang_tpu_torch import profile_msm
+    from zukelang_tpu_torch.golden.curve import G1
+    from zukelang_tpu_torch.golden.field import Fr
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+
+    K.reset_counts()
+    res, st = profile_msm.profile(logn, c, dev, log=log)
+    t0 = time.time()
+    combined = _windows_combined(st["points"], st["digits"], c)
+    windows_s = time.time() - t0
+    staged = msm.msm_staged(st["points"], st["scalars_std"], "g1", c)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    log(f"{res['n_windows']} window programs combined in {windows_s:.3f} s "
+        f"(host clock, golden combine included); equal to msm_staged: "
+        f"{combined == staged}")
+    log(f"launches of one window program: {res['window_program_launches']}")
+    log(f"K8 collision fallbacks: {msm.FALLBACKS['bucket_sums_fused']}")
+    log(f"profile_msm: {json.dumps(res)}")
+    if combined != staged:
+        raise AssertionError("window path: the combined windows differ from "
+                             "msm_staged")
+    _check_launches("window profile", counts, WINDOW_KERNELS)
+
+    pts, scs, scalars, ks = profile_msm.make_inputs(GOLDEN_LOG, dev)
+    digits = msm._scalars_to_signed_windows(scs, c)
+    g = G1.generator()
+    golden = G1.dot([g * k for k in ks], [Fr(v) for v in scalars])
+    small = (_windows_combined(pts, digits, c),
+             msm.msm_staged(pts, scs, "g1", c))
+    log(f"2^{GOLDEN_LOG}: combined windows and msm_staged equal to golden "
+        f"G1.dot: {[x == golden for x in small]}")
+    if any(x != golden for x in small):
+        raise AssertionError("window path: differs from golden G1.dot at "
+                             f"2^{GOLDEN_LOG}")
+
+    path_kernel_checks(st, logn, c)
+    return counts, res
+
+
+def path_kernel_checks(st, logn: int, c: int):
+    """Every kernel of the window program against its plain version on
+    the path's own inputs (`profile_msm`'s state of window 3)."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+
+    Kc, nb = msm.CHUNK, msm.n_buckets(c)
+    absd = st["absd"]
+    log(f"K4 digit_sort at the path's inputs (one window of 2^{logn}, "
+        f"nb = {nb})")
+    record("digit_sort", lambda: K.digit_sort(absd, nb),
+           lambda: K.digit_sort_plain(absd, nb),
+           lambda got: (_nbytes(absd, got), 0),
+           library=lambda: torch.sort(absd, dim=-1, stable=True))
+
+    p8, s8 = st["pts_sorted"], st["d_sorted"]
+    log(f"K8 bucket_scan at the path's inputs (G1, 2^{logn}, K = {Kc})")
+    record("bucket_scan", lambda: K.bucket_scan(p8, s8, Kc, "g1"),
+           lambda: K.bucket_scan_plain(p8, s8, Kc, "g1"),
+           _k8_work(p8, s8, Kc, "g1"), plain_reps=1)
+
+    # step t of the chunked phase 1: the scan after step t-1 plus the
+    # sorted point t of every chunk lane
+    t = Kc // 2
+    acc = tuple(x[..., t - 1::Kc].contiguous() for x in st["ph1"])
+    cur = tuple(x[..., t::Kc].contiguous() for x in p8)
+    log(f"K3 point_madd at the path's inputs (step {t} of the chunked "
+        f"phase 1, {acc[0].shape[-1]} lanes)")
+    record("point_madd", lambda: K.point_madd(acc, cur),
+           lambda: K.point_madd_plain(acc, cur),
+           _madd_work("g1", acc, cur), plain_reps=1)
+
+    # the carry scan of `_carry_scatter` over the K8 chunk tails, and the
+    # weighted reduce's prefix scan over the reversed, padded buckets
+    tails = tuple(x[..., Kc - 1::Kc].contiguous() for x in st["k8_scan"])
+    last_seg = s8[Kc - 1::Kc].contiguous()
+    rev = tuple(torch.flip(v, dims=(-1,)).contiguous()
+                for v in msm._set_infinity(msm._pad_buckets(
+                    st["buckets"], st["nb_pad"]), 0))
+    for pts, k, seg, what in ((tails, Kc, last_seg, "chunk tails"),
+                              (rev, 64, None, "padded buckets")):
+        n = pts[0].shape[-1]
+        log(f"K7 jac_scan at the path's inputs ({n} {what}, K = {k}, "
+            f"seg={seg is not None})")
+        record("jac_scan", lambda: K.jac_scan(pts, k, seg),
+               lambda: K.jac_scan_plain(pts, k, seg),
+               _jac_scan_work("g1", pts, k, seg), plain_reps=1)
+        # K2 at the same width: the scan's carry add, operands of the path
+        P, Q = K.jac_scan(pts, k, seg), pts
+        log(f"K2 point_add at the path's width ({n} lanes)")
+        record("point_add", lambda: K.point_add(P, Q),
+               lambda: K.point_add_plain(P, Q), _add_work("g1", P, Q),
+               plain_reps=1)
+
+
+def probe_path(dev, logn: int):
+    import torch
+    from zukelang_tpu_torch import probe_looped
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.params import FQ
+
+    K.reset_counts()
+    res, (a, b, _out) = probe_looped.run(logn, dev, log=log)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    log(f"probe_looped: {json.dumps(res)}")
+    _check_launches("looped probe", counts, PROBE_KERNELS)
+    log(f"mont_mul_looped at the probe's inputs (Fq, 2^{logn})")
+    record("mont_mul_looped", lambda: K.mont_mul_looped(a, b, FQ),
+           lambda: K.mont_mul_plain(a, b, FQ),
+           lambda got: (_nbytes(a, b, got), (1 << logn) * PRODUCTS["Fq"]),
+           plain_reps=1)
+    return counts, res
 
 
 def main() -> int:
@@ -521,6 +749,12 @@ def main() -> int:
     log(f"phase 5: pinocchio at 2^{PIN_LOG_CONSTRAINTS}")
     paths[f"pinocchio_2^{PIN_LOG_CONSTRAINTS}"] = pinocchio_path(
         dev, PIN_LOG_CONSTRAINTS)
+    provers = list(paths)
+    log(f"phase 6: MSM window profile at 2^{WINDOW_LOG}, c = {WINDOW_C}")
+    paths[f"window_profile_2^{WINDOW_LOG}"] = window_path(
+        dev, WINDOW_LOG, WINDOW_C)
+    log(f"phase 7: looped-product probe at 2^{PROBE_LOG}")
+    paths[f"probe_looped_2^{PROBE_LOG}"] = probe_path(dev, PROBE_LOG)
 
     kernels = []
     for name in K.KERNELS:
@@ -532,8 +766,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(c[name] for c, _ in paths.values()),
             "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
-            "launches_per_prove": {p: pp[name]
-                                   for p, (_, pp) in paths.items()},
+            "launches_per_prove": {p: paths[p][1][name] for p in provers},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": last["ms"], "plain_ms": last["plain_ms"],
             "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],

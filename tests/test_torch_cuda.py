@@ -138,3 +138,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.mont_mul(a.to(torch.int64), a.to(torch.int64), FR)
     with pytest.raises(ValueError):
         K.mont_mul(a, a[:, :32], FR)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k8_bucket_scan_kernel_equals_plain(dev, group):
+    """K8 on the flat layout: random segments, affine infinity, and a
+    repeated point right after a segment start in every 5th lane, which
+    must raise exactly those lanes' flags."""
+    Kc, M = 32, 150
+    n = Kc * M
+    X, Y = _coord(group, n, 41, dev), _coord(group, n, 43, dev)
+    lanes = torch.arange(M, device=dev) * Kc
+    X[..., lanes[::7] + 3] = 0
+    Y[..., lanes[::7] + 3] = 0
+    dup = lanes[::5] + 10
+    X[..., dup + 1] = X[..., dup]
+    Y[..., dup + 1] = Y[..., dup]
+    steps = torch.randint(0, 2, (n,), device=dev)
+    steps[dup], steps[dup + 1] = 1, 0
+    seg = torch.cumsum(steps, 0).to(torch.int32)
+    before = K.LAUNCHES["bucket_scan"]
+    got, gflag = K.bucket_scan((X, Y), seg, Kc, group)
+    assert K.LAUNCHES["bucket_scan"] == before + 1
+    want, wflag = K.bucket_scan_plain((X, Y), seg, Kc, group)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want_flag = torch.zeros(M, dtype=torch.bool, device=dev)
+    want_flag[::5] = True
+    assert torch.equal(gflag, wflag) and torch.equal(gflag, want_flag)
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
+def test_mont_mul_looped_equals_k1_and_plain(dev, spec):
+    a, b = _field(spec, 3000, 51, dev), _field(spec, 3000, 53, dev)
+    before = K.LAUNCHES["mont_mul_looped"]
+    got = K.mont_mul_looped(a, b, spec)
+    assert K.LAUNCHES["mont_mul_looped"] == before + 1
+    assert torch.equal(got, K.mont_mul(a, b, spec))
+    assert torch.equal(got, K.mont_mul_plain(a, b, spec))
+
+
+def test_new_wrappers_refuse_bad_shapes(dev):
+    X = _coord("g1", 64, 1, dev)
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        K.bucket_scan((X, X), seg, 48, "g1")            # 64 % 48 != 0
+    with pytest.raises(ValueError):
+        K.bucket_scan((X, X[:, :32]), seg, 32, "g1")
+    with pytest.raises(ValueError):
+        K.bucket_scan((X, X), seg, 32, "g2")             # G1 coordinates
+    with pytest.raises(ValueError):
+        K.bucket_scan((X, X), seg.to(torch.int64), 32, "g1")
+    a = _field(FQ, 64, 2, dev)
+    with pytest.raises(ValueError):
+        K.mont_mul_looped(a, a[:, :32], FQ)
+    with pytest.raises(ValueError):
+        K.mont_mul_looped(a.to(torch.int64), a.to(torch.int64), FQ)

@@ -3,13 +3,16 @@ jax or anything of the JAX package (`zukelang_tpu`); a process with both
 blocked runs the frozen x^3 + x + 3 vectors through the port's Groth16
 and Pinocchio ZK on the CPU, byte-equal to the golden proofs;
 and chip_smoke.py refuses to run (non-zero exit, no result) where there
-is no CUDA device instead of falling back to the CPU."""
+is no CUDA device instead of falling back to the CPU, and so do the
+card's entry points `profile_msm` and `probe_looped`."""
 
 import os
 import re
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "zukelang_tpu_torch")
@@ -20,7 +23,7 @@ sys.modules["jax"] = None
 sys.modules["zukelang_tpu"] = None
 import torch
 torch.set_num_threads(1)
-from zukelang_tpu_torch import vectors
+from zukelang_tpu_torch import probe_looped, profile_msm, vectors
 from zukelang_tpu_torch.core import flat
 from zukelang_tpu_torch.ops import kernels
 from zukelang_tpu_torch.protocols import groth16_device as gd
@@ -101,3 +104,20 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("module,args", [("profile_msm", ["6", "4"]),
+                                         ("probe_looped", ["8"])])
+def test_card_entry_points_refuse_the_cpu(module, args):
+    """Without CUDA the entry point raises with jax and the JAX package
+    blocked (so it imports neither) and prints no result."""
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['zukelang_tpu'] = None; "
+            f"sys.argv = ['{module}'] + {args!r}; "
+            f"runpy.run_module('zukelang_tpu_torch.{module}', "
+            "run_name='__main__')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "needs a CUDA device" in res.stderr
+    assert "{" not in res.stdout

@@ -33,7 +33,8 @@ from ..params import FQ, FR, FieldSpec
 from . import field as F
 
 KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
-           "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums")
+           "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums",
+           "bucket_scan", "mont_mul_looped")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -55,6 +56,8 @@ _ARGTYPES = {
                             _I32, _P],
     "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P],
     "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I64, _P],
+    "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
+    "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
 }
 
 
@@ -307,6 +310,10 @@ def _madd(P, Q, o: FieldOps):
 def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, spec)
+    return _mont_mul_launch("mont_mul", "zk_mont_mul", a, b, spec)
+
+
+def _mont_mul_launch(kernel: str, cname: str, a, b, spec: FieldSpec):
     shape = a.shape
     a2 = a.reshape(spec.nl, -1).contiguous()
     b2 = b.reshape(spec.nl, -1).contiguous()
@@ -316,10 +323,27 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     out = torch.empty_like(a2)
     n = a2.shape[1]
     if n:
-        _launch("mont_mul", "zk_mont_mul", a.device,
-                _I32(0 if spec is FR else 1), build.ptr(a2), build.ptr(b2),
-                build.ptr(out), _I64(n))
+        _launch(kernel, cname, a.device, _I32(0 if spec is FR else 1),
+                build.ptr(a2), build.ptr(b2), build.ptr(out), _I64(n))
     return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# mont_mul_looped
+# Replaces _mont_mul_kernel_looped (scripts/probe_looped_kernel.py:29, call
+# _looped_call :75), the TPU probe of compile time against body size.  K1's
+# product with the outer limb loop rolled (`#pragma unroll 1`) and the
+# inner loops unrolled, in its own source (csrc/mont_mul_looped.cu) so its
+# nvcc time and registers show apart from K1's.  Bound: as K1, integer
+# products.  Its plain version is K1's.
+# ---------------------------------------------------------------------------
+
+def mont_mul_looped(a: torch.Tensor, b: torch.Tensor,
+                    spec: FieldSpec) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return mont_mul_plain(a, b, spec)
+    return _mont_mul_launch("mont_mul_looped", "zk_mont_mul_looped", a, b,
+                            spec)
 
 
 # ---------------------------------------------------------------------------
@@ -614,3 +638,58 @@ def weighted_chunk_sums(points, K: int):
                 *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
                 _I32(K), _I64(n))
     return tuple(outs[:3]), tuple(outs[3:])
+
+
+# ---------------------------------------------------------------------------
+# K8  bucket_scan
+# Replaces bucket_scan_pallas (pallas_kernels.py:807; kernel
+# _seg_scan_kernel :709, call _seg_scan_call :778).  K5's scan on the flat
+# layout: one thread per chunk lane m reads columns m*K + t in place and
+# restarts where seg differs from its predecessor, with the accumulator
+# and flag in registers (no (K, rows, M) relayout, no segp, no padding).
+# Bound: 11 field products per continuing finite step; the stride-K reads
+# are not coalesced.
+# ---------------------------------------------------------------------------
+
+def bucket_scan_plain(points, seg: torch.Tensor, K: int, group: str):
+    """K5's plain version on the chunk layout of the flat input."""
+    X, Y = (x.reshape(-1, x.shape[-1]) for x in points)
+    M = X.shape[1] // K
+
+    def to3(v):
+        return v.reshape(v.shape[0], M, K).permute(2, 0, 1)
+
+    seg3 = to3(seg.reshape(1, -1))
+    segp3 = torch.cat([seg3[:1], seg3[:-1]], dim=0)
+    out3, flag = bucket_scan_rows_plain(to3(torch.cat([X, Y])), seg3, segp3,
+                                        group)
+    shape = points[0].shape
+    return tuple(v.permute(1, 2, 0).reshape(shape) for v in out3), flag
+
+
+def bucket_scan(points, seg: torch.Tensor, K: int, group: str):
+    """In-chunk segmented mixed-add scan over sorted affine points.
+
+    points (X, Y): (12, N) for G1, (2, 12, N) for G2, (0, 0) = infinity;
+    seg (N,) int32 sorted bucket ids; N % K == 0.  Returns ((X, Y, Z) in
+    the same layout, (N/K,) bool): element i holds the inclusive segmented
+    prefix sum of chunk i // K up to position i % K; a flagged lane hit
+    the doubling case of the mixed add and holds garbage."""
+    n = seg.shape[-1]
+    if (K <= 0 or n % K or seg.shape != (n,)
+            or any(x.shape != ((2, 12, n) if group == "g2" else (12, n))
+                   for x in points)):
+        raise ValueError(f"bucket_scan: bad shapes {points[0].shape}, "
+                         f"{points[1].shape}, {seg.shape} for {group}, K={K}")
+    if points[0].device.type == "cpu":
+        return bucket_scan_plain(points, seg, K, group)
+    ins = [x.contiguous() for x in (*points, seg)]
+    _cuda_args(*ins)
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    flag = torch.empty(n // K, dtype=torch.int32, device=ins[0].device)
+    if n:
+        _launch("bucket_scan", "zk_bucket_scan", ins[0].device,
+                _I32(int(group == "g2")), *(build.ptr(x) for x in ins),
+                *(build.ptr(x) for x in outs), build.ptr(flag), _I32(K),
+                _I64(n))
+    return tuple(outs), flag != 0

@@ -1,6 +1,6 @@
 """Multi-scalar multiplication (Pippenger) and fixed-base batches.
 
-Counterpart of `zukelang_tpu/ops/msm.py`, v2 pipeline only:
+Counterpart of `zukelang_tpu/ops/msm.py`:
 
   * `msm_many_staged_deferred` / `msm_staged_deferred`: signed-digit
     Pippenger.  Per window: digit sort (K4), a row gather of the sorted,
@@ -12,10 +12,18 @@ Counterpart of `zukelang_tpu/ops/msm.py`, v2 pipeline only:
     generator (built with K7), summed by K5 in tails-only mode from 128
     elements, by a window loop of K3 mixed adds below.
 
-Where the JAX package scans over windows, this module runs each stage
-once over all windows: the windows' chunk lanes sit side by side in one
-kernel launch.  Widths must be multiples of 32 and at least 64 (callers
-pad), so the v2 path is the only path; the JAX v1 window is not ported.
+  * `window_program`: the JAX package's per-window program
+    (`_jit_window`), the route of its MSM profilers.  Affine bases take
+    the K8 route (`_bucket_sums_fused`: K4 sort, gather, K8 scan, carry
+    scatter with K7 and K2); the chunked (K3 loop) and Jacobian (log-depth
+    K2 scan) variants keep their JAX routes.  `msm_staged` returns a
+    golden point.
+
+Where the JAX package scans over windows, the v2 MSM runs each stage once
+over all windows: the windows' chunk lanes sit side by side in one
+kernel launch.  Its widths must be multiples of 32 and at least 64
+(callers pad), so the v1 window inside the JAX MSM entry points is never
+taken; `window_program` is the only v1 route.
 
 Scalars cross this API as (8, N) int32 tensors of 32-bit limbs, standard
 form unless the name says Montgomery.
@@ -183,6 +191,227 @@ def _total_auto(points: C.Point, K: int = CHUNK) -> C.Point:
         return _hs_total(points)
     scanned = kern.jac_scan(points, K)
     return _total_auto(tuple(x[..., K - 1::K] for x in scanned), K)
+
+
+# ---------------------------------------------------------------------------
+# The v1 window: one window's bucket sums and weighted reduce
+# ---------------------------------------------------------------------------
+
+# Times `_bucket_sums_fused` found a flagged K8 lane and took the
+# collision-safe `_bucket_sums` (the JAX package's lax.cond).
+FALLBACKS = {"bucket_sums_fused": 0}
+
+
+def _apply_signs(points, dig_signed: torch.Tensor):
+    """-> (points with Y negated where the digit is negative, |digits|)."""
+    neg = dig_signed < 0
+    y = kern.select_lanes(neg, _neg_y(points[1]), points[1])
+    return (points[0], y) + tuple(points[2:]), dig_signed.abs()
+
+
+def _group(points) -> str:
+    return kern.group_of(points[0])
+
+
+def _scatter_tails(scanned: C.Point, d_sorted: torch.Tensor,
+                   n_buckets: int) -> C.Point:
+    """The last (inclusive-scan) element of each segment into its bucket;
+    the other elements go to a dummy slot that is cut off."""
+    is_tail = torch.ones_like(d_sorted, dtype=torch.bool)
+    is_tail[:-1] = d_sorted[:-1] != d_sorted[1:]
+    tgt = torch.where(is_tail, d_sorted.to(torch.int64), n_buckets)
+    out = C.infinity(_group(scanned), n_buckets + 1, d_sorted.device)
+    for b, v in zip(out, scanned):
+        b[..., tgt] = v
+    return tuple(b[..., :n_buckets] for b in out)
+
+
+def _sort_gather(points, digits: torch.Tensor):
+    """Stable sort by digit (the JAX package's jnp.argsort) and gather."""
+    d_sorted, order = torch.sort(digits, stable=True)
+    return tuple(x[..., order] for x in points), d_sorted
+
+
+def _bucket_sums(points: C.Point, digits: torch.Tensor,
+                 n_buckets: int) -> C.Point:
+    """Per-bucket sums of one window, collision-safe: sort, log-depth
+    segmented scan of K2 adds, scatter of the segment tails."""
+    pts, d_sorted = _sort_gather(points, digits)
+    return _scatter_tails(_hs_segmented_scan(pts, d_sorted), d_sorted,
+                          n_buckets)
+
+
+def _madd_chunk_scan(pts, d_sorted: torch.Tensor, K: int):
+    """Phase 1 of `_bucket_sums_chunked`: K steps over the N/K chunk lanes,
+    each one batched add of the current point (K3 + K2 fix-up for affine
+    points, K2 for Jacobian ones), restarting at segment starts.  Returns
+    the flat in-chunk scan."""
+    affine = len(pts) == 2
+    n = d_sorted.shape[-1]
+    M = n // K
+    d2 = d_sorted.reshape(M, K)
+    p2 = tuple(x.reshape(x.shape[:-1] + (M, K)) for x in pts)
+
+    def cur_at(t):
+        cur = tuple(x[..., t] for x in p2)
+        return cur, (C.affine_to_jac(cur) if affine else cur)
+
+    acc = cur_at(0)[1]
+    outs = [acc]
+    for t in range(1, K):
+        cur, cur_jac = cur_at(t)
+        added = C.point_madd(acc, cur) if affine else C.point_add(acc, cur)
+        same = d2[:, t] == d2[:, t - 1]
+        acc = tuple(kern.select_lanes(same, a, c)
+                    for a, c in zip(added, cur_jac))
+        outs.append(acc)
+    return tuple(torch.stack([o[i] for o in outs], dim=-1).reshape(
+        outs[0][i].shape[:-1] + (n,)) for i in range(3))
+
+
+def _bucket_sums_chunked(points, digits: torch.Tensor, n_buckets: int,
+                         K: int = CHUNK) -> C.Point:
+    """Work-efficient bucket sums: sort, the K-step in-chunk scan (phase
+    1), then `_carry_scatter`.  `points` affine (2-tuple, K3 in phase 1)
+    or Jacobian (K2)."""
+    n = digits.shape[-1]
+    if n % K != 0 or n // K < 2:
+        if len(points) == 2:
+            points = C.affine_to_jac(points)
+        return _bucket_sums(points, digits, n_buckets)
+    pts, d_sorted = _sort_gather(points, digits)
+    return _carry_scatter(_madd_chunk_scan(pts, d_sorted, K), d_sorted,
+                          n_buckets, K)
+
+
+def _carry_scatter(scan_flat: C.Point, d_sorted: torch.Tensor,
+                   n_buckets: int, K: int) -> C.Point:
+    """Phases 2 and 3 of the chunked bucket sums, from the flat in-chunk
+    scan (chunk m = sorted elements [m*K, (m+1)*K)): a segmented scan of
+    the chunk-end partials by each chunk's last digit (K7, `_seg_scan_auto`),
+    then the carry into chunk m lands at bucket first_seg[m] when that
+    segment's tail lies in chunk m, added to the scattered tails with one
+    K2 add."""
+    dev = d_sorted.device
+    M = d_sorted.shape[-1] // K
+    last_seg, first_seg = d_sorted[K - 1::K], d_sorted[0::K]
+    car = _seg_scan_auto(tuple(x[..., K - 1::K] for x in scan_flat),
+                         last_seg)
+    match = torch.zeros(M, dtype=torch.bool, device=dev)
+    match[1:] = last_seg[:-1] == first_seg[1:]
+    buckets = _scatter_tails(scan_flat, d_sorted, n_buckets)
+    continues = torch.zeros(M, dtype=torch.bool, device=dev)
+    continues[:-1] = ((last_seg == first_seg)[:-1]
+                      & (first_seg[1:] == first_seg[:-1]))
+    tgt = torch.where(match & ~continues, first_seg.to(torch.int64),
+                      n_buckets)
+    carry = C.infinity(_group(scan_flat), n_buckets + 1, dev)
+    for b, v in zip(carry, car):
+        b[..., tgt] = kern.select_lanes(match, _shift1(v), torch.zeros_like(v))
+    return C.point_add(buckets, tuple(b[..., :n_buckets] for b in carry))
+
+
+def _bucket_sums_fused(points: C.AffinePoint, digits: torch.Tensor,
+                       n_buckets: int, K: int = CHUNK) -> C.Point:
+    """Bucket sums of affine points with phase 1 as one K8 launch: K4
+    digit sort, gather, K8, `_carry_scatter`.  Where K8 flags a lane (a
+    doubling case: equal points in a row of one bucket), the window takes
+    the collision-safe `_bucket_sums` on the sorted points instead, as the
+    JAX package's lax.cond does; that costs one host read of the flags."""
+    n = digits.shape[-1]
+    if n % K != 0 or n // K < 2:
+        return _bucket_sums(C.affine_to_jac(points), digits, n_buckets)
+    d_sorted, order = kern.digit_sort(digits.reshape(1, n), n_buckets)
+    d_sorted = d_sorted[0]
+    pts = tuple(x[..., order[0].to(torch.int64)] for x in points)
+    scanned, collided = kern.bucket_scan(pts, d_sorted, K, _group(points))
+    if bool(collided.any()):
+        FALLBACKS["bucket_sums_fused"] += 1
+        return _bucket_sums(C.affine_to_jac(pts), d_sorted, n_buckets)
+    return _carry_scatter(scanned, d_sorted, n_buckets, K)
+
+
+def _chunked_prefix_scan(points: C.Point, K: int) -> C.Point:
+    """Unsegmented inclusive prefix sum: K7 in chunks of K, a scan of the
+    chunk totals (`_seg_scan_auto`), one K2 add of the carries."""
+    n = points[0].shape[-1]
+    M = n // K
+    scanned = kern.jac_scan(points, K)
+    car = _seg_scan_auto(tuple(x[..., K - 1::K] for x in scanned),
+                         torch.zeros(M, dtype=torch.int32,
+                                     device=points[0].device))
+    carry = tuple(torch.repeat_interleave(_shift1(v), K, dim=-1)
+                  for v in car)                        # Z = 0: infinity
+    return C.point_add(scanned, carry)
+
+
+def _set_infinity(points: C.Point, col: int) -> C.Point:
+    inf = C.infinity(_group(points), 1, points[0].device)
+    out = tuple(v.clone() for v in points)
+    for v, i in zip(out, inf):
+        v[..., col:col + 1] = i
+    return out
+
+
+def _weighted_bucket_reduce(buckets: C.Point, K: int = 64) -> C.Point:
+    """sum_{b>=1} b * S_b as the sum of the suffix sums T_j (j >= 1):
+    chunked (K7, K2) where B is a multiple of K with at least two chunks,
+    else the log-depth K2 scans."""
+    B = buckets[0].shape[-1]
+    rev = tuple(torch.flip(v, dims=(-1,))
+                for v in _set_infinity(buckets, 0))     # weight of S_0 is 0
+    chunked = B % K == 0 and B // K >= 2
+    if chunked:
+        sc = _chunked_prefix_scan(rev, K)               # sc[k] = T_{B-1-k}
+    else:
+        sc = _hs_segmented_scan(rev, torch.zeros(
+            B, dtype=torch.int32, device=rev[0].device))
+    sc = _set_infinity(sc, B - 1)                       # drop T_0
+    return _total_auto(sc, K) if chunked else _hs_total(sc)
+
+
+def _pad_buckets(buckets: C.Point, nb_to: int) -> C.Point:
+    """Pad at the high end with infinities (b * infinity adds nothing)."""
+    cur = buckets[0].shape[-1]
+    if cur >= nb_to:
+        return buckets
+    inf = C.infinity(_group(buckets), nb_to - cur, buckets[0].device)
+    return tuple(torch.cat([a, b], dim=-1) for a, b in zip(buckets, inf))
+
+
+@functools.lru_cache(maxsize=64)
+def window_program(group: str, c: int, chunked: bool = True,
+                   affine: bool = False, signed: bool = True):
+    """One Pippenger window, the counterpart of the JAX package's
+    `_jit_window`: `run(points, dig)` takes the bases (affine (X, Y) when
+    `affine`, else Jacobian) and one window's digits (N,) (signed in
+    [-(2^(c-1) - 1), 2^(c-1)] when `signed`) and returns the window's
+    weighted bucket sum, a batch-1 point.  Affine bases take the K8 route
+    on every device.  The profiler and `chip_smoke.py` run only that
+    route (affine, signed); the Jacobian, `chunked=False` and unsigned
+    variants are kept for parity with `_jit_window`, held against it by
+    the tests, for the port of the JAX `bench_msm` that will run them."""
+    def bucket_fn(points, dig, nb):
+        if affine:
+            return _bucket_sums_fused(points, dig, nb)
+        if not chunked:
+            return _bucket_sums(points, dig, nb)
+        return _bucket_sums_chunked(points, dig, nb)
+
+    def run(points, dig):
+        if signed:
+            points, dig = _apply_signs(points, dig)
+            nb = n_buckets(c)
+        else:
+            nb = 1 << c
+        if affine and len(points) != 2:
+            raise ValueError("window_program(affine=True) takes affine "
+                             f"(X, Y) bases, got {len(points)} coordinates")
+        buckets = bucket_fn(points, dig, nb)
+        nb_pad = -(-nb // 64) * 64 if nb >= 128 else nb
+        return _weighted_bucket_reduce(_pad_buckets(buckets, nb_pad))
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +669,13 @@ def msm_staged_deferred(points: C.AffinePoint, scalars_std: torch.Tensor,
         return res
 
     return resolve
+
+
+def msm_staged(points: C.AffinePoint, scalars_std: torch.Tensor,
+               group: str = "g1", c: int = None):
+    """One MSM (`msm_staged_deferred`) -> a golden point on the host."""
+    res = msm_staged_deferred(points, scalars_std, group, c)()
+    return (C.unpack_g1 if group == "g1" else C.unpack_g2)(res)[0]
 
 
 # ---------------------------------------------------------------------------
