@@ -15,7 +15,11 @@ Phases (any failure raises and the script exits non-zero):
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
   4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
-     make_synthetic_r1cs(16, seed=1), every kernel launch counted;
+     make_synthetic_r1cs(16, seed=1), every kernel launch counted; then
+     one more prove whose K4 and K6 inputs are kept, and each of those
+     calls against its plain version: K4 on the G1 (80, 2^16) and G2
+     (20, 2^16) digit blocks beside the stable `torch.sort`, K6 on the
+     three levels of the weighted reduction in each group;
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
@@ -191,6 +195,14 @@ def _wsum_adds(inf):
             else:
                 w_inf = s_inf
     return adds
+
+
+def _wsum_work(group, P, K):
+    """work(got) of a K6 call: 16 coordinate products per full add of the
+    one-thread reversed scan, the fewest adds that give s and w."""
+    inf = _zero_coord(P[2]).reshape(-1, K).t()              # (K, M)
+    adds = _wsum_adds(inf.flip(0))
+    return lambda got: (_nbytes(P, got), _fq_ops(group, 16 * adds))
 
 
 # kernel name -> rows of its checks: err, ms, plain_ms, bound, library_ms
@@ -401,13 +413,11 @@ def kernel_checks(dev, rng: random.Random):
             record("jac_scan", lambda: K.jac_scan(P, 32, s),
                    lambda: K.jac_scan_plain(P, 32, s),
                    _jac_scan_work(group, P, 32, s), plain_reps=1)
-        inf = _zero_coord(P[2]).reshape(-1, 32).t()          # (K, M)
-        adds = _wsum_adds(inf.flip(0))
-        log(f"K6 weighted_chunk_sums {group} (2^15, K = 32)")
+        log(f"K6 weighted_chunk_sums {group} (2^15, K = 32, "
+            f"g = {K.wsum_group(n7 // 32, 32)})")
         record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(P, 32),
                lambda: K.weighted_chunk_sums_plain(P, 32),
-               lambda got: (_nbytes(P, got), _fq_ops(group, 16 * adds)),
-               plain_reps=1)
+               _wsum_work(group, P, 32), plain_reps=1)
 
     # K8 on the flat layout: random segments, affine infinity at step 5
     # of every 13th lane, and in every 11th lane a segment that starts at
@@ -532,7 +542,61 @@ def groth16_path(dev, log_constraints: int):
     if not ok:
         raise AssertionError("groth16: proof does not verify")
     _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds)
+    seen = _capture_inputs(lambda: gd.prove_device(crs, fc, wm,
+                                                   Gen(b"bench-capture")),
+                           ("digit_sort", "weighted_chunk_sums"))
+    prove_path_kernel_checks(seen)
     return counts, per_prove
+
+
+def _capture_inputs(run, names):
+    """Run `run()` with the named kernel wrappers of `ops.kernels` wrapped
+    so that their arguments are kept: -> {name: [args of each call]}."""
+    from zukelang_tpu_torch.ops import kernels as K
+    seen = {k: [] for k in names}
+    orig = {k: getattr(K, k) for k in names}
+
+    def keep(name):
+        def call(*args):
+            seen[name].append(args)
+            return orig[name](*args)
+        return call
+    try:
+        for k in names:
+            setattr(K, k, keep(k))
+        run()
+    finally:
+        for k, fn in orig.items():
+            setattr(K, k, fn)
+    return seen
+
+
+def prove_path_kernel_checks(seen):
+    """K4 and K6 against their plain versions on one Groth16 prove's own
+    inputs: the G1 and G2 digit blocks, beside the stable `torch.sort`,
+    and the three levels of `_wreduce_batched` in each group."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
+    if len(sorts) != 2 or len(wsums) != 6:
+        raise AssertionError(f"groth16 prove: {len(sorts)} K4 and "
+                             f"{len(wsums)} K6 calls, expected 2 and 6")
+    for keys, nb in sorts:
+        log(f"K4 digit_sort at the prove's inputs ({tuple(keys.shape)}, "
+            f"nb = {nb})")
+        record("digit_sort", lambda: K.digit_sort(keys, nb),
+               lambda: K.digit_sort_plain(keys, nb),
+               lambda got: (_nbytes(keys, got), 0),
+               library=lambda: torch.sort(keys, dim=-1, stable=True))
+    for i, (pts, kc) in enumerate(wsums):
+        group = K.group_of(pts[0])
+        chunks = pts[0].shape[-1] // kc
+        log(f"K6 weighted_chunk_sums at the prove's inputs ({group}, level "
+            f"{i % 3 + 1}: {chunks} chunks of {kc}, "
+            f"g = {K.wsum_group(chunks, kc)})")
+        record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(pts, kc),
+               lambda: K.weighted_chunk_sums_plain(pts, kc),
+               _wsum_work(group, pts, kc), plain_reps=1)
 
 
 def pinocchio_path(dev, log_constraints: int):

@@ -93,11 +93,67 @@ def test_point_madd_kernel_equals_plain(dev, group):
     assert torch.equal(gflag, wflag) and bool(gflag[1::5].all())
 
 
-def test_digit_sort_kernel_equals_stable_sort(dev):
-    keys = torch.randint(0, 4097, (4, 5000), dtype=torch.int32, device=dev)
-    sk, order = K.digit_sort(keys, 4097)
-    psk, porder = K.digit_sort_plain(keys, 4097)
+def _sort_keys(case, rows, n, nkeys, dev):
+    gen = torch.Generator(device="cpu").manual_seed(rows * n + nkeys)
+    if case == "random":
+        keys = torch.randint(0, nkeys, (rows, n), generator=gen)
+    elif case == "equal":
+        keys = torch.full((rows, n), nkeys - 1)
+    else:                                   # distinct keys, shuffled
+        keys = torch.stack([torch.randperm(nkeys, generator=gen)[:n]
+                            for _ in range(rows)])
+    return keys.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("nkeys", [17, 4097, 8193, 32769])
+@pytest.mark.parametrize("rows,n", [(1, 2048 * 3 + 17), (80, 5000), (3, 31)])
+@pytest.mark.parametrize("case", ["random", "equal", "distinct"])
+def test_digit_sort_kernel_equals_stable_sort(dev, nkeys, rows, n, case):
+    """K4 against torch.sort(stable=True) word for word: widths that are
+    not a multiple of the 2048-key tile, one and 80 rows, all keys equal,
+    all keys distinct (where nkeys allows)."""
+    if case == "distinct" and n > nkeys:
+        n = nkeys
+    keys = _sort_keys(case, rows, n, nkeys, dev)
+    before = K.LAUNCHES["digit_sort"]
+    sk, order = K.digit_sort(keys, nkeys)
+    assert K.LAUNCHES["digit_sort"] == before + 1
+    want_sk, want_order = torch.sort(keys, dim=-1, stable=True)
+    assert torch.equal(sk, want_sk)
+    assert torch.equal(order, want_order.to(torch.int32))
+    psk, porder = K.digit_sort_plain(keys, nkeys)
     assert torch.equal(sk, psk) and torch.equal(order, porder)
+
+
+def _wsum_points(group, g, dev, Kc=32, M=70):
+    """M chunks: random points with infinities; in every 5th chunk points
+    K-1 and K-1-g equal (K-2 and K-1 for g = K), the doubling case of a
+    lane's first add or of the first shuffle round; in every 7th chunk a
+    point next to its negation."""
+    X, Y, Z = (x.clone() for x in _points(group, Kc * M, 61, dev))
+    base = torch.arange(0, M, 5, device=dev) * Kc
+    a, b = (base + Kc - 2, base + Kc - 1) if g == Kc else (
+        base + Kc - 1 - g, base + Kc - 1)
+    for c in (X, Y, Z):
+        c[..., a] = c[..., b]
+    base = torch.arange(0, M, 7, device=dev) * Kc + 3
+    X[..., base + 1] = X[..., base]
+    Z[..., base + 1] = Z[..., base]
+    neg = F.fq2_neg(Y) if group == "g2" else F.neg(Y, FQ)
+    Y[..., base + 1] = neg[..., base]
+    return X, Y, Z
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
+def test_weighted_chunk_sums_kernel_equals_plain_every_width(dev, group, g):
+    P = _wsum_points(group, g, dev)
+    before = K.LAUNCHES["weighted_chunk_sums"]
+    got = K.weighted_chunk_sums(P, 32, g)
+    assert K.LAUNCHES["weighted_chunk_sums"] == before + 1
+    want = K.weighted_chunk_sums_plain(P, 32, g)
+    for gt, wt in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(gt, wt))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

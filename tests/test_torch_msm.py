@@ -1,8 +1,9 @@
 """The port's MSM kernels: the plain versions of K4, K5, K7 and K6 against
 what the JAX package runs in their place on the CPU (the interpret-mode
 bitonic sort, the XLA bucket sums and scans), and against the golden
-curve; the digit helpers against the JAX package's; one v2 MSM at
-n = 128 with negative digits.  The rest of the pipeline is in
+curve (K6 at every group width, and the weighted reduction built on it);
+K4's pass plan and K6's choice of group width; the digit helpers against
+the JAX package's; one v2 MSM at n = 128 with negative digits.  The rest of the pipeline is in
 test_torch_msm_pipeline.py.
 
 Tolerance: exact — sorted keys and permutations equal, limbs equal where
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from zukelang_tpu import params
-from zukelang_tpu.golden.curve import G1
+from zukelang_tpu.golden.curve import G1, G2
 from zukelang_tpu.golden.field import Fr
 from zukelang_tpu.ops import curve_jax as CJ
 from zukelang_tpu.ops import field_jax as FJ
@@ -145,17 +146,110 @@ def test_jac_scan_plain_matches_golden_prefix_sums():
         assert _b(got) == _b(want)
 
 
-def test_weighted_chunk_sums_plain_matches_golden():
-    """The JAX package has no XLA form of K6 (its CPU path is the Pallas
-    kernel in interpret mode, minutes even at n = 64): golden sums."""
-    n, Kc = 64, 32
-    pts = _g1_points(n, 3)
-    pts[40] = G1.zero()
-    s, w = K.weighted_chunk_sums(C.pack_g1(pts), Kc)
+def _wsum_chunks(g, Kc=32):
+    """Three chunks of G1 points: in chunk 0 the two last points equal
+    (the doubling case of the full add at g = 1 and g = K), in chunk 1
+    points K-1 and K-1-g equal (the first add of lane g-1 for g < K), in
+    chunk 2 a point next to its negation and an infinity."""
+    pts = _g1_points(3 * Kc, 3)
+    pts[Kc - 2] = pts[Kc - 1]
+    if g < Kc:
+        pts[2 * Kc - 1 - g] = pts[2 * Kc - 1]
+    pts[2 * Kc + 5] = -pts[2 * Kc + 4]
+    pts[2 * Kc + 9] = G1.zero()
+    return pts
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
+def test_weighted_chunk_sums_plain_matches_golden(g):
+    """Every group width K6 can take, against golden sums.  The JAX
+    package has no XLA form of K6 (its CPU path is the Pallas kernel in
+    interpret mode, minutes even at n = 64)."""
+    Kc = 32
+    pts = _wsum_chunks(g, Kc)
+    s, w = K.weighted_chunk_sums(C.pack_g1(pts), Kc, g)
     for m, (sg, wg) in enumerate(zip(C.unpack_g1(s), C.unpack_g1(w))):
         chunk = pts[m * Kc:(m + 1) * Kc]
         assert _b([sg, wg]) == _b([G1.sum(chunk),
                                    G1.dot(chunk, [Fr(t) for t in range(Kc)])])
+
+
+def test_weighted_chunk_sums_plain_g2_matches_golden():
+    Kc, g = 32, 4
+    r = random.Random(12)
+    gen = G2.generator()
+    pts = [gen * r.randrange(1, params.R) for _ in range(2 * Kc)]
+    pts[Kc - 1 - g] = pts[Kc - 1]
+    pts[Kc + 3] = -pts[Kc + 2]
+    pts[Kc + 7] = G2.zero()
+    s, w = K.weighted_chunk_sums(C.pack_g2(pts), Kc, g)
+    for m, (sg, wg) in enumerate(zip(C.unpack_g2(s), C.unpack_g2(w))):
+        chunk = pts[m * Kc:(m + 1) * Kc]
+        assert _b([sg, wg]) == _b([G2.sum(chunk),
+                                   G2.dot(chunk, [Fr(t) for t in range(Kc)])])
+
+
+def test_wreduce_batched_matches_golden():
+    """Three blocks of 64 buckets: two levels of K6 (the second on the
+    stacked, padded chunk sums), the K2 doublings and add."""
+    nblk, per = 3, 64
+    pts = _g1_points(nblk * per, 4)
+    pts[5] = G1.zero()
+    pts[70] = pts[71]
+    pts[130] = -pts[131]
+    W, S = msm._wreduce_batched(C.pack_g1(pts), nblk, per)
+    for j, (wg, sg) in enumerate(zip(C.unpack_g1(W), C.unpack_g1(S))):
+        blk = pts[j * per:(j + 1) * per]
+        assert _b([wg, sg]) == _b([G1.dot(blk, [Fr(b) for b in range(per)]),
+                                   G1.sum(blk)])
+
+
+def test_wsum_group_is_a_pure_function_of_the_shapes(monkeypatch):
+    """The group width depends on the chunk count and K alone, never on a
+    device: few lanes per chunk on the wide first levels of the weighted
+    reduction, a whole warp per chunk on the narrowest."""
+    def no_device(*a, **k):
+        raise AssertionError("wsum_group looked at a device")
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    levels = {10320: 4, 800: 16, 320: 32, 2580: 4, 200: 32, 80: 32,
+              20640: 4, 1600: 8, 640: 16, 5160: 4, 400: 32, 160: 32,
+              1: 32, 1 << 20: 4}
+    assert {m: K.wsum_group(m, 32) for m in levels} == levels
+    for m in (1, 7, 100, 5000, 1 << 20):
+        for k in (1, 2, 8, 24, 32, 64):
+            g = K.wsum_group(m, k)
+            assert g == K.wsum_group(m, k)
+            assert g & (g - 1) == 0 and k % g == 0 and g <= 32
+    assert K.wsum_group(2, 24) == 8
+    # the CPU wrapper takes the plain version at the same width
+    P = C.pack_g1(_g1_points(64, 9))
+    got = K.weighted_chunk_sums(P, 32)
+    want = K.weighted_chunk_sums_plain(P, 32, K.wsum_group(2, 32))
+    assert all(torch.equal(a, b) for x, y in zip(got, want)
+               for a, b in zip(x, y))
+    with pytest.raises(ValueError):
+        K.weighted_chunk_sums(P, 32, 3)
+
+
+@pytest.mark.parametrize("nkeys", [1, 2, 17, 256, 257, 4097, 8193, 32769,
+                                   1 << 20])
+def test_radix_passes_sort_like_a_stable_sort(nkeys):
+    """K4's pass plan: passes of at most 8 bits covering the key width, as
+    few as possible; stable counting sorts by those digits, low pass
+    first, give the stable sort's order."""
+    bits = K.radix_passes(nkeys)
+    width = max(1, (nkeys - 1).bit_length())
+    assert sum(bits) == width and all(1 <= b <= 8 for b in bits)
+    assert len(bits) == -(-width // 8)
+    keys = np.random.RandomState(nkeys % 1000).randint(
+        0, nkeys, size=3000).astype(np.int64)
+    order, shift = np.arange(keys.size), 0
+    for b in bits:
+        digit = (keys[order] >> shift) & ((1 << b) - 1)
+        order = order[np.argsort(digit, kind="stable")]
+        shift += b
+    assert np.array_equal(order, np.argsort(keys, kind="stable"))
 
 
 @pytest.mark.parametrize("c", [4, 5])

@@ -4,7 +4,8 @@ blocked runs the frozen x^3 + x + 3 vectors through the port's Groth16
 and Pinocchio ZK on the CPU, byte-equal to the golden proofs;
 and chip_smoke.py refuses to run (non-zero exit, no result) where there
 is no CUDA device instead of falling back to the CPU, and so do the
-card's entry points `profile_msm` and `probe_looped`."""
+card's entry points `profile_msm`, `probe_looped`, `profile_kernels` and
+`profile_prove`."""
 
 import os
 import re
@@ -107,7 +108,9 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("module,args", [("profile_msm", ["6", "4"]),
-                                         ("probe_looped", ["8"])])
+                                         ("probe_looped", ["8"]),
+                                         ("profile_kernels", []),
+                                         ("profile_prove", ["--log", "6"])])
 def test_card_entry_points_refuse_the_cpu(module, args):
     """Without CUDA the entry point raises with jax and the JAX package
     blocked (so it imports neither) and prints no result."""

@@ -24,6 +24,7 @@ Coordinates: a G1 coordinate is an Fq batch `(12, N)`, a G2 coordinate
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -51,11 +52,12 @@ _ARGTYPES = {
     "zk_point_add": [_I32] + [_P] * 9 + [_I64, _P],
     "zk_point_double": [_I32] + [_P] * 6 + [_I64, _P],
     "zk_point_madd": [_I32] + [_P] * 9 + [_I64, _P],
-    "zk_digit_sort": [_P, _P, _P, _I64, _I64, _I32, _P],
+    "zk_digit_sort": [_P] * 6 + [_I64, _I64, _I32, ctypes.POINTER(_I32),
+                                 _P],
     "zk_bucket_scan_rows": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64,
                             _I32, _P],
     "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P],
-    "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I64, _P],
+    "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I32, _I64, _P],
     "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
     "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
 }
@@ -439,13 +441,36 @@ def point_madd(p, q):
 # ---------------------------------------------------------------------------
 # K4  digit_sort
 # Replaces bitonic_argsort / bitonic_sort_pairs (pallas_kernels.py:1173,
-# :1139; kernel _bitonic_kernel :1083, cross passes :1125).  A per-row
-# counting sort over keys in [0, nkeys): one block per row builds the
-# histogram with shared-memory atomics, scans it, and one warp scatters the
-# row in order with __match_any_sync ranks, so the sort is stable and
-# deterministic.  Bound: the single scattering warp's latency per 32 keys;
-# rows (windows) run on separate SMs.  Returns (sorted keys, order).
+# :1139; kernel _bitonic_kernel :1083, cross passes :1125).  A stable LSD
+# radix sort of each row on its key, at most 8 bits per pass
+# (`radix_passes`): per pass, per-tile digit counts, a per-row scan of
+# them, and a scatter in which every warp ranks its keys with
+# __match_any_sync and each tile is staged in shared memory so that a
+# digit's run is written to consecutive addresses.  Each row is cut into
+# tiles of 2048 keys, one block each, so a call fills the card even with
+# one row.  Bound: bytes.  One wrapper call runs 3 kernels per pass and
+# counts one launch.  Returns (sorted keys, order).
 # ---------------------------------------------------------------------------
+
+SORT_TILE = 2048      # keys per block of K4 (kTile in csrc/digit_sort.cu)
+_SORT_DIGITS = 256    # counters per tile and pass (kMaxDigits)
+
+
+def radix_passes(nkeys: int) -> Tuple[int, ...]:
+    """Bits of each K4 pass for keys in [0, nkeys): the key's width split
+    into the fewest passes of at most 8 bits, the low passes the wider."""
+    bits = max(1, (nkeys - 1).bit_length())
+    npass = -(-bits // 8)
+    return tuple(bits // npass + (1 if p < bits % npass else 0)
+                 for p in range(npass))
+
+
+@functools.lru_cache(maxsize=64)
+def _sort_plan(nkeys: int):
+    """(passes, the bits of each as a C int array) for the K4 call."""
+    bits = radix_passes(nkeys)
+    return len(bits), (ctypes.c_int * len(bits))(*bits)
+
 
 def digit_sort_plain(keys: torch.Tensor, nkeys: int) -> Tuple[torch.Tensor, torch.Tensor]:
     sk, order = torch.sort(keys, dim=-1, stable=True)
@@ -460,14 +485,24 @@ def digit_sort(keys: torch.Tensor, nkeys: int) -> Tuple[torch.Tensor, torch.Tens
     k = keys.contiguous()
     _cuda_args(k)
     rows, n = k.shape
-    if nkeys * 4 > 220 * 1024:
-        raise ValueError(f"digit_sort: {nkeys} keys exceed shared memory")
-    sk = torch.empty_like(k)
-    order = torch.empty_like(k)
+    if not 1 <= nkeys <= 1 << 31 or rows > 65535:
+        raise ValueError(f"digit_sort: {rows} rows of keys in [0, {nkeys}) "
+                         "are not supported")
+    out = torch.empty((2, rows, n), dtype=torch.int32, device=k.device)
+    sk, order = out[0], out[1]
     if rows and n:
+        npass, bits = _sort_plan(nkeys)
+        tiles = -(-n // SORT_TILE)
+        # counts (rows, 256, tiles), then tmp keys and values for 2+ passes
+        ncount = rows * _SORT_DIGITS * tiles
+        scratch = torch.empty(ncount + (2 * rows * n if npass > 1 else 0),
+                              dtype=torch.int32, device=k.device)
+        base = scratch.data_ptr()
+        tmp = ((_P(base + 4 * ncount), _P(base + 4 * (ncount + rows * n)))
+               if npass > 1 else (_P(None), _P(None)))
         _launch("digit_sort", "zk_digit_sort", k.device, build.ptr(k),
-                build.ptr(sk), build.ptr(order), _I64(rows), _I64(n),
-                _I32(nkeys))
+                build.ptr(sk), build.ptr(order), _P(base), *tmp, _I64(rows),
+                _I64(n), _I32(npass), bits)
     return sk, order
 
 
@@ -597,36 +632,103 @@ def jac_scan(points, K: int, seg: torch.Tensor = None):
 # ---------------------------------------------------------------------------
 # K6  weighted_chunk_sums
 # Replaces weighted_chunk_sums (pallas_kernels.py:1455; kernel _wsum_kernel
-# :1327, call _wsum_call :1430).  One thread per chunk walks it backwards:
-# s = running suffix sum, w += s after each element but the last, so
-# s = sum v_t and w = sum t*v_t.  Bound: two full adds per point and two
-# Jacobian accumulators in flight (144 words for G2: spills to local
-# memory, hence 128-thread blocks).
+# :1327, call _wsum_call :1430).  A group of g lanes per chunk (g from
+# `wsum_group`): lane i reduces the points i, i+g, ... in registers (a
+# reversed scan: S_i, W_i = sum_j j v), then the group combines with
+# shuffles, s = sum_i S_i and w = sum_{i>=1} Suf_i + g sum_i W_i (Suf_i =
+# sum_{i'>=i} S_i', a suffix scan; g W_i by log2 g doublings).  Bound: the
+# chain of dependent full adds per chunk (2L - 3 + 2 log2 g, L = K/g), on
+# launches too narrow to fill the card at one thread per chunk.
 # ---------------------------------------------------------------------------
 
-def weighted_chunk_sums_plain(points, K: int):
+# Warps of a K6 launch up to which its adds do not queue on the card: on
+# an H100 a step of the chain took the same time at 80 to about 400 warps
+# and about (warps / 400) ** 0.75 times as long beyond (`profile_kernels
+# --sweep`, every g at the provers' level shapes; PERF.md).
+WSUM_WARPS = 400
+
+
+def _wsum_chain(K: int, g: int) -> float:
+    """Dependent full adds of one K6 chunk at g lanes (a doubling counts
+    0.45 of an add): the lane's reversed scan, two suffix scans, and the
+    doublings and add of g W_i (none for L = 1)."""
+    L, lg = K // g, g.bit_length() - 1
+    return 2 * lg + (2 * L - 3 + 0.45 * lg + 1 if L > 1 else 0)
+
+
+def wsum_group(chunks: int, K: int) -> int:
+    """Lanes per chunk of K6: the power of two g (dividing K, at most 32)
+    with the least chain length x max(1, warps / WSUM_WARPS) ** 0.75.  A
+    pure function of the shapes: the wrapper and the plain version both
+    call it, so they add in the same order."""
+    gs = [1 << i for i in range(6) if K % (1 << i) == 0]
+    return min(gs, key=lambda g: _wsum_chain(K, g) * max(
+        1.0, chunks * g / 32 / WSUM_WARPS) ** 0.75)
+
+
+def _lane_down(x: torch.Tensor, d: int, g: int) -> torch.Tensor:
+    """Per group of g lanes (the last axis), lane i gets lane i + d's value
+    (infinity where i + d >= g): the kernel's __shfl_down_sync."""
+    xg = x.reshape(x.shape[:-1] + (-1, g))
+    out = torch.nn.functional.pad(xg[..., d:], (0, d))
+    return out.reshape(x.shape)
+
+
+def _group_suffix_scan(P, g: int, lane: torch.Tensor, o: FieldOps):
+    """Inclusive suffix sums over each group of g lanes (group_suffix_scan
+    in csrc/weighted_sums.cu): lane i adds lane i + d for d = 1, 2, ..."""
+    d = 1
+    while d < g:
+        added = _add(P, tuple(_lane_down(x, d, g) for x in P), o)
+        keep = lane + d < g
+        P = tuple(o.sel(keep, a, p) for a, p in zip(added, P))
+        d *= 2
+    return P
+
+
+def weighted_chunk_sums_plain(points, K: int, g: int = None):
+    """The kernel's additions in its order, g lanes per chunk (default
+    `wsum_group`)."""
     o = _OPS[group_of(points[0])]
     n = points[0].shape[-1]
     M = n // K
-    p2 = [x.reshape(x.shape[:-1] + (M, K)) for x in points]
-    s = w = None
-    for t in range(K):
-        v = tuple(x[..., K - 1 - t] for x in p2)
-        s = v if t == 0 else _add(s, v, o)
-        if t == 0:
-            w = s if K > 1 else tuple(torch.zeros_like(x) for x in s)
-        elif t < K - 1:
-            w = _add(w, s, o)
-    return tuple(x.contiguous() for x in s), tuple(x.contiguous() for x in w)
+    g = wsum_group(M, K) if g is None else g
+    L = K // g
+    p4 = [x.reshape(x.shape[:-1] + (M, L, g)) for x in points]
+    lane = torch.arange(M * g, device=points[0].device) % g
+
+    def lanes(j):
+        return tuple(x[..., j, :].reshape(x.shape[:-3] + (M * g,)) for x in p4)
+
+    w = None
+    for j in reversed(range(L)):
+        v = lanes(j)
+        s = v if j == L - 1 else _add(s, v, o)
+        if j >= 1:
+            w = s if j == L - 1 else _add(w, s, o)
+    s = _group_suffix_scan(s, g, lane, o)
+    t = tuple(o.sel(lane >= 1, x, torch.zeros_like(x)) for x in s)
+    if L > 1:
+        for _ in range(g.bit_length() - 1):
+            w = _dbl(w, o)
+        t = _add(t, w, o)
+    t = _group_suffix_scan(t, g, lane, o)
+    return (tuple(x[..., ::g].contiguous() for x in s),
+            tuple(x[..., ::g].contiguous() for x in t))
 
 
-def weighted_chunk_sums(points, K: int):
-    """Per chunk of K points: (s, w) with s = sum v_t, w = sum t*v_t."""
+def weighted_chunk_sums(points, K: int, g: int = None):
+    """Per chunk of K points: (s, w) with s = sum v_t, w = sum t*v_t; g
+    lanes per chunk (default `wsum_group`; a power of two dividing K, at
+    most 32)."""
     n = points[0].shape[-1]
     if n % K:
         raise ValueError(f"weighted_chunk_sums: width {n} not a multiple of {K}")
+    g = wsum_group(n // K, K) if g is None else g
+    if g < 1 or g > 32 or g & (g - 1) or K % g:
+        raise ValueError(f"weighted_chunk_sums: {g} lanes per chunk of {K}")
     if points[0].device.type == "cpu":
-        return weighted_chunk_sums_plain(points, K)
+        return weighted_chunk_sums_plain(points, K, g)
     ins = [x.contiguous() for x in points]
     _cuda_args(*ins)
     shape = ins[0].shape[:-1] + (n // K,)
@@ -636,7 +738,7 @@ def weighted_chunk_sums(points, K: int):
         _launch("weighted_chunk_sums", "zk_weighted_chunk_sums",
                 ins[0].device, _I32(int(group_of(points[0]) == "g2")),
                 *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
-                _I32(K), _I64(n))
+                _I32(K), _I32(g), _I64(n))
     return tuple(outs[:3]), tuple(outs[3:])
 
 

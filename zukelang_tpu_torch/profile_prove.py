@@ -14,7 +14,8 @@ the canonical 2^16 domain), runs keygen and two warm-up proves, then:
   * one prove under `torch.profiler`: the device's busy time (the sum of
     the device time of every kernel, copy and fill, counted on the device
     side only, not again under the host op that launched it), the number
-    of kernel launches, and the kernels with the most device time.
+    of kernel launches, and the device time and count of every kernel,
+    copy and fill, largest first.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -159,7 +160,7 @@ def main(argv=None) -> dict:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / 1e3 / prove_s,
         "kernel_launches": launches,
-        "top_device_ms": [[k, round(ms, 4), n] for k, ms, n in device[:10]],
+        "device_ms_by_kernel": [[k, round(ms, 4), n] for k, ms, n in device],
         "card": torch.cuda.get_device_name(0),
     }
     print(json.dumps(res))
