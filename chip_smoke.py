@@ -10,16 +10,21 @@ Phases (any failure raises and the script exits non-zero):
      both at once, and report their build times;
   2. every kernel against its plain PyTorch version on the card, at the
      paths' shapes; integer outputs must be equal; times from CUDA events
-     after a warm-up, beside each kernel's bound (bytes or operations);
+     after a warm-up, beside each kernel's bound (bytes or operations).
+     K2's chained doubling at 2^12 with count 1 and at the window
+     combine's 80 (G1) and 20 (G2) points with counts 13 w; K5 on a small
+     row table with and without bucket tails, a forced collision flagged;
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
   4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
      make_synthetic_r1cs(16, seed=1), every kernel launch counted; then
-     one more prove whose K4 and K6 inputs are kept, and each of those
-     calls against its plain version: K4 on the G1 (80, 2^16) and G2
-     (20, 2^16) digit blocks beside the stable `torch.sort`, K6 on the
-     three levels of the weighted reduction in each group;
+     one more prove whose K4, K5, K6 and K2 doubling inputs are kept, and
+     each of those calls against its plain version: K4 on the G1
+     (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
+     `torch.sort`, K5 on both groups' whole blocks, K6 on the three levels
+     of the weighted reduction in each group, the doubling on the window
+     combine and the reduction's doublings in each group;
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
@@ -131,6 +136,10 @@ def card_line() -> str:
 def _max_err(a, b) -> int:
     """Largest |difference| of the uint32 words (or ints) of two results."""
     import torch
+    if a is None or b is None:
+        if (a is None) != (b is None):
+            raise AssertionError("kernel and plain differ in what they return")
+        return 0
     if isinstance(a, (tuple, list)):
         return max(_max_err(x, y) for x, y in zip(a, b))
     if a.dtype == torch.bool:
@@ -211,16 +220,22 @@ RESULTS = {}
 
 def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
     """Hold a kernel call against its plain version, time both (and the
-    library call; `timing.time_ms`, mean of `reps` after a warm-up), and
-    keep the row.  work(got) -> (bytes, operations)."""
+    library call; `timing.time_ms`, mean of `reps` after a warm-up; the
+    plain version with plain_reps=0 by the host clock around the call that
+    was checked), and keep the row.  work(got) -> (bytes, operations)."""
     import torch
     from zukelang_tpu_torch.timing import time_ms
     dev = torch.device("cuda:0")
-    got, want = kern(), plain()
+    got = kern()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    first_plain_ms = (time.perf_counter() - t0) * 1e3
     err = _max_err(got, want)
     ms = time_ms(kern, dev, reps, "mean")[0]
-    plain_ms = time_ms(plain, dev, plain_reps, "mean")[0]
+    plain_ms = (time_ms(plain, dev, plain_reps, "mean")[0] if plain_reps
+                else first_plain_ms)
     lib_ms = (time_ms(library, dev, reps, "mean")[0]
               if library is not None else None)
     bound_ms, bound_by = _bound(*work(got))
@@ -266,6 +281,28 @@ def _jac_scan_work(group, P, K, seg):
         restart[1:] = sk[1:] != sk[:-1]
     adds = _scan_adds(inf, restart)
     return lambda got: (_nbytes(P, seg, got), _fq_ops(group, 16 * adds))
+
+
+def _double_work(group, P, counts):
+    """work(got) of a chained doubling: 7 coordinate products per
+    doubling the counts ask for."""
+    total = (int(counts.clamp(min=0).sum()) if hasattr(counts, "sum")
+             else max(0, int(counts)) * P[0].shape[-1])
+    return lambda got: (_nbytes(P, got, counts if hasattr(counts, "sum")
+                                else None), _fq_ops(group, 7 * total))
+
+
+def _k5_work(group, rows, idx, seg, K):
+    """work(got) of a K5 call: 11 coordinate products per continuing
+    step with both operands finite; bytes: the row table, indices and
+    segment ids read once, the outputs written once."""
+    inf = (rows[idx.reshape(-1).long()] == 0).all(dim=1).reshape(-1, K).t()
+    sk = seg.reshape(-1, K).t()
+    restart = sk != sk.roll(1, 0)
+    restart[0] = True
+    madds = _scan_adds(inf, restart)
+    return lambda got: (_nbytes(rows, idx, seg, got), _fq_ops(group,
+                                                              11 * madds))
 
 
 def _k8_work(points, seg, K, group):
@@ -334,6 +371,15 @@ def kernel_checks(dev, rng: random.Random):
                lambda: K.point_double_plain(P),
                lambda got: (_nbytes(P, got), _fq_ops(group, 7 * n2)),
                plain_reps=1)
+        # the window combine's shape: 4 (G1) / 1 (G2) MSMs of 20 windows,
+        # window w doubled 13 w times (count 0 at w = 0), infinity lanes
+        nd = 80 if group == "g1" else 20
+        Pd = rand_points(group, nd)
+        counts = (13 * (torch.arange(nd, device=dev) % 20)).to(torch.int32)
+        log(f"K2 point_double_n {group} ({nd} points, counts 13 w)")
+        record("point_double", lambda: K.point_double_n(Pd, counts),
+               lambda: K.point_double_n_plain(Pd, counts),
+               _double_work(group, Pd, counts), plain_reps=0)
 
         # K3: Jacobian P + affine Q with infinity on both sides, P == Q
         # (flagged) and P == -Q lanes; at 2^12 and at the keygen path's
@@ -378,30 +424,33 @@ def kernel_checks(dev, rng: random.Random):
     if not torch.equal(torch.gather(digits, 1, order.long()), sk):
         raise AssertionError("digit_sort: keys[order] != sorted keys")
 
-    Kc, M = 32, 2048
+    # K5: a table of 4096 random affine rows (row 7 the infinity), 4 block
+    # rows of 2048 sorted positions (digits below 257); position 1 of each
+    # row repeats position 0's point in its segment: the doubling case
+    nrows, B5, n5, nb5 = 4096, 4, 2048, 257
     for group in ("g1", "g2"):
-        rows = 12 if group == "g1" else 24
-        X = rand_coord(group, Kc * M).reshape(rows, Kc, M).transpose(0, 1)
-        Y = rand_coord(group, Kc * M).reshape(rows, Kc, M).transpose(0, 1)
-        pts3 = torch.cat([X, Y], dim=1).contiguous()      # (K, 2 rows, M)
-        pts3[5, :, ::13] = 0                              # affine infinity
-        pts3[7, :, ::11] = pts3[6, :, ::11]               # collisions
-        steps = torch.randint(0, 2, (Kc, 1, M), device=dev, dtype=torch.int32)
-        seg3 = torch.cumsum(steps, dim=0).to(torch.int32)
-        segp3 = torch.cat([seg3[:1], seg3[:-1]], dim=0)
-        inf = (pts3 == 0).all(dim=1)                       # (K, M)
-        restart = (seg3 != segp3)[:, 0]
-        restart[0] = True
-        madds = _scan_adds(inf, restart)
-        for tails in (False, True):
-            log(f"K5 bucket_scan_rows {group} (32, {2 * rows}, 2048) "
-                f"tails_only={tails}")
+        tab = torch.cat([rand_coord(group, nrows).reshape(-1, nrows),
+                         rand_coord(group, nrows).reshape(-1, nrows)]).t()
+        tab = tab.contiguous()
+        tab[7] = 0
+        idx5 = torch.randint(0, nrows, (B5, n5), dtype=torch.int32,
+                             device=dev)
+        idx5[:, 1] = idx5[:, 0] = 11
+        seg5 = torch.sort(torch.randint(0, nb5, (B5, n5), device=dev))[0]
+        seg5 = seg5.to(torch.int32)
+        seg5[:, 1] = seg5[:, 0]
+        for nb in (None, nb5):
+            log(f"K5 bucket_scan_rows {group} ({B5} x {n5} rows of a "
+                f"{nrows}-row table, K = 32, nb = {nb})")
             record("bucket_scan_rows",
-                   lambda: K.bucket_scan_rows(pts3, seg3, segp3, group, tails),
-                   lambda: K.bucket_scan_rows_plain(pts3, seg3, segp3, group,
-                                                    tails),
-                   lambda got: (_nbytes(pts3, seg3, segp3, got),
-                                _fq_ops(group, 11 * madds)), plain_reps=1)
+                   lambda: K.bucket_scan_rows(tab, idx5, seg5, 32, group, nb),
+                   lambda: K.bucket_scan_rows_plain(tab, idx5, seg5, 32,
+                                                    group, nb),
+                   _k5_work(group, tab, idx5, seg5, 32), plain_reps=1)
+            flag = K.bucket_scan_rows(tab, idx5, seg5, 32, group, nb)[2]
+            if not bool(flag[::n5 // 32].all()):
+                raise AssertionError("bucket_scan_rows: the forced collision "
+                                     "is not flagged")
 
     n7 = 1 << 15
     for group in ("g1", "g2"):
@@ -544,22 +593,24 @@ def groth16_path(dev, log_constraints: int):
     _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds)
     seen = _capture_inputs(lambda: gd.prove_device(crs, fc, wm,
                                                    Gen(b"bench-capture")),
-                           ("digit_sort", "weighted_chunk_sums"))
+                           ("digit_sort", "weighted_chunk_sums",
+                            "bucket_scan_rows", "point_double_n"))
     prove_path_kernel_checks(seen)
     return counts, per_prove
 
 
 def _capture_inputs(run, names):
     """Run `run()` with the named kernel wrappers of `ops.kernels` wrapped
-    so that their arguments are kept: -> {name: [args of each call]}."""
+    so that their arguments are kept: -> {name: [(args, kwargs) of each
+    call]}."""
     from zukelang_tpu_torch.ops import kernels as K
     seen = {k: [] for k in names}
     orig = {k: getattr(K, k) for k in names}
 
     def keep(name):
-        def call(*args):
-            seen[name].append(args)
-            return orig[name](*args)
+        def call(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return orig[name](*args, **kwargs)
         return call
     try:
         for k in names:
@@ -572,23 +623,35 @@ def _capture_inputs(run, names):
 
 
 def prove_path_kernel_checks(seen):
-    """K4 and K6 against their plain versions on one Groth16 prove's own
-    inputs: the G1 and G2 digit blocks, beside the stable `torch.sort`,
-    and the three levels of `_wreduce_batched` in each group."""
+    """K4, K5, K6 and K2's doubling against their plain versions on one
+    Groth16 prove's own inputs: the G1 and G2 digit blocks, beside the
+    stable `torch.sort`; K5 on both groups' whole blocks; the three levels
+    of `_wreduce_batched` in each group; the window combine's chain and
+    the reduction's doublings in each group."""
     import torch
     from zukelang_tpu_torch.ops import kernels as K
     sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
-    if len(sorts) != 2 or len(wsums) != 6:
-        raise AssertionError(f"groth16 prove: {len(sorts)} K4 and "
-                             f"{len(wsums)} K6 calls, expected 2 and 6")
-    for keys, nb in sorts:
+    scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
+    if (len(sorts), len(scans), len(wsums), len(dbls)) != (2, 2, 6, 6):
+        raise AssertionError(
+            f"groth16 prove: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
+            f"K6 and {len(dbls)} doubling calls, expected 2, 2, 6 and 6")
+    for (keys, nb), _kw in sorts:
         log(f"K4 digit_sort at the prove's inputs ({tuple(keys.shape)}, "
             f"nb = {nb})")
         record("digit_sort", lambda: K.digit_sort(keys, nb),
                lambda: K.digit_sort_plain(keys, nb),
                lambda got: (_nbytes(keys, got), 0),
                library=lambda: torch.sort(keys, dim=-1, stable=True))
-    for i, (pts, kc) in enumerate(wsums):
+    for (rows, idx, seg, kc, group, nb), _kw in scans:
+        log(f"K5 bucket_scan_rows at the prove's inputs ({group}, whole: "
+            f"{tuple(idx.shape)} positions of a {rows.shape[0]}-row table, "
+            f"K = {kc}, nb = {nb})")
+        record("bucket_scan_rows",
+               lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
+               lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group, nb),
+               _k5_work(group, rows, idx, seg, kc), plain_reps=0)
+    for i, ((pts, kc), _kw) in enumerate(wsums):
         group = K.group_of(pts[0])
         chunks = pts[0].shape[-1] // kc
         log(f"K6 weighted_chunk_sums at the prove's inputs ({group}, level "
@@ -597,6 +660,16 @@ def prove_path_kernel_checks(seen):
         record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(pts, kc),
                lambda: K.weighted_chunk_sums_plain(pts, kc),
                _wsum_work(group, pts, kc), plain_reps=1)
+    for (pts, counts), _kw in dbls:
+        group = K.group_of(pts[0])
+        n = pts[0].shape[-1]
+        what = (f"max count {int(counts.max())}" if hasattr(counts, "max")
+                else f"count {counts}")
+        log(f"K2 point_double_n at the prove's inputs ({group}, {n} points, "
+            f"{what})")
+        record("point_double", lambda: K.point_double_n(pts, counts),
+               lambda: K.point_double_n_plain(pts, counts),
+               _double_work(group, pts, counts), plain_reps=0)
 
 
 def pinocchio_path(dev, log_constraints: int):

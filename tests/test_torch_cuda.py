@@ -156,22 +156,81 @@ def test_weighted_chunk_sums_kernel_equals_plain_every_width(dev, group, g):
         assert all(torch.equal(a, b) for a, b in zip(gt, wt))
 
 
+def _k5_inputs(group, case, dev, B=3, n=256, nrows=300):
+    """A row table of random affine points with an infinity row, and B
+    rows of n positions: row indices and sorted segment ids (uniform
+    digits, one digit for the whole row, or all distinct), with position
+    1 repeating position 0's point in the same segment (a collision)."""
+    R = 12 if group == "g1" else 24
+    gen = torch.Generator(device="cpu").manual_seed(B * n + len(case))
+    X = _coord(group, nrows, 71, dev).reshape(R, nrows)
+    Y = _coord(group, nrows, 73, dev).reshape(R, nrows)
+    rows = torch.cat([X, Y]).t().contiguous()
+    rows[7] = 0                                        # affine infinity
+    idx = torch.randint(0, nrows, (B, n), generator=gen).to(torch.int32)
+    idx[:, 5] = 7
+    if case == "uniform":
+        seg = torch.sort(torch.randint(0, 40, (B, n), generator=gen))[0]
+    elif case == "equal":
+        seg = torch.full((B, n), 3)
+    else:
+        seg = torch.arange(n).expand(B, n)
+    seg = seg.to(torch.int32).contiguous()
+    seg[:, 1] = seg[:, 0]
+    idx[:, 0] = idx[:, 1] = 11
+    nb = int(seg.max()) + 1
+    return rows, idx.to(dev), seg.to(dev), nb
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
-@pytest.mark.parametrize("tails", [False, True])
-def test_bucket_scan_kernel_equals_plain(dev, group, tails):
-    Kc, M = 8, 200
-    rows = 12 if group == "g1" else 24
-    X = _coord(group, Kc * M, 11, dev).reshape(rows, Kc, M).transpose(0, 1)
-    Y = _coord(group, Kc * M, 13, dev).reshape(rows, Kc, M).transpose(0, 1)
-    pts3 = torch.cat([X, Y], dim=1).contiguous()
-    pts3[2, :, ::7] = 0
-    seg3 = torch.cumsum(torch.randint(0, 2, (Kc, 1, M), device=dev),
-                        0).to(torch.int32)
-    segp3 = torch.cat([seg3[:1], seg3[:-1]])
-    (got, gf) = K.bucket_scan_rows(pts3, seg3, segp3, group, tails)
-    (want, wf) = K.bucket_scan_rows_plain(pts3, seg3, segp3, group, tails)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert torch.equal(gf, wf)
+@pytest.mark.parametrize("with_nb", [False, True])
+def test_bucket_scan_kernel_equals_plain(dev, group, with_nb):
+    """K5 against its plain version, chunk tails, bucket tails and flags,
+    on uniform, all-equal and all-distinct digits, and with one segment
+    per chunk."""
+    for case in ("uniform", "equal", "distinct"):
+        rows, idx, seg, nb = _k5_inputs(group, case, dev)
+        nb = nb if with_nb else None
+        before = K.LAUNCHES["bucket_scan_rows"]
+        got = K.bucket_scan_rows(rows, idx, seg, 32, group, nb)
+        assert K.LAUNCHES["bucket_scan_rows"] == before + 1
+        want = K.bucket_scan_rows_plain(rows, idx, seg, 32, group, nb)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        if with_nb:
+            assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        else:
+            assert got[1] is None
+        assert torch.equal(got[2], want[2])
+        # position 1 repeats position 0 in chunk 0 of every row; in the
+        # distinct case that is the only continuing step of the chunk
+        assert bool(got[2][::seg.shape[1] // 32].all())
+        if case == "distinct":
+            assert int(got[2].sum()) == seg.shape[0]
+    got = K.bucket_scan_rows(rows, idx, None, 32, group)
+    want = K.bucket_scan_rows_plain(rows, idx, None, 32, group)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_point_double_n_kernel_equals_plain(dev, group):
+    """The chained doubling: mixed per-point counts with 0, infinity
+    points, widths that leave a warp part-filled, one count for all."""
+    for n in (20, 80, 301):
+        P = _points(group, n, 81, dev)
+        counts = ((torch.arange(n, device=dev) % 20) * 13).to(torch.int32)
+        counts[3] = 0
+        counts[4] = -2
+        before = K.LAUNCHES["point_double"]
+        got = K.point_double_n(P, counts)
+        assert K.LAUNCHES["point_double"] == before + 1
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, K.point_double_n_plain(P, counts)))
+        got5 = K.point_double_n(P, 5)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got5, K.point_double_n_plain(P, 5)))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(K.point_double(P), K.point_double_plain(P)))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -244,6 +303,25 @@ def test_new_wrappers_refuse_bad_shapes(dev):
         K.bucket_scan((X, X), seg, 32, "g2")             # G1 coordinates
     with pytest.raises(ValueError):
         K.bucket_scan((X, X), seg.to(torch.int64), 32, "g1")
+    P = _points("g1", 64, 5, dev)
+    with pytest.raises(ValueError):
+        K.point_double_n(P, torch.zeros((1, 64), dtype=torch.int32,
+                                        device=dev))
+    with pytest.raises(ValueError):
+        K.point_double_n(P, torch.zeros(63, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        K.point_double_n(P, torch.zeros(64, dtype=torch.int64, device=dev))
+    rows, idx, sg, nb = _k5_inputs("g1", "uniform", dev, B=2, n=64)
+    with pytest.raises(ValueError):
+        K.bucket_scan_rows(rows, idx, sg, 48, "g1")      # 64 % 48 != 0
+    with pytest.raises(ValueError):
+        K.bucket_scan_rows(rows, idx, sg, 32, "g2")      # G1 rows
+    with pytest.raises(ValueError):
+        K.bucket_scan_rows(rows, idx, None, 32, "g1", nb)  # nb needs seg
+    with pytest.raises(ValueError):
+        K.bucket_scan_rows(rows, idx.to(torch.int64), sg, 32, "g1")
+    with pytest.raises(ValueError):
+        K.bucket_scan_rows(rows[:, 1:], idx, sg, 32, "g1")
     a = _field(FQ, 64, 2, dev)
     with pytest.raises(ValueError):
         K.mont_mul_looped(a, a[:, :32], FQ)

@@ -97,33 +97,33 @@ def test_k7_scans_match_jax_xla_scans(segmented):
 
 
 def test_bucket_scan_rows_matches_carry_scatter_and_bucket_sums():
-    """K5 (plain) + the JAX carry application == the JAX log-depth bucket
-    sums, as tests/test_pallas_tpu.py pairs them for the Pallas kernel."""
-    n, Kc, nb = 128, 32, 9
+    """K5 (plain) in the v2 window, which gathers the sorted rows in the
+    scan, and the port's batched carry application == the JAX log-depth
+    bucket sums, as tests/test_pallas_tpu.py pairs the Pallas kernel with
+    the carry application; without nb the same chunk tails and no bucket
+    outputs."""
+    n, Kc, c = 128, 32, 4
+    nb = msm.n_buckets(c)
     pts = _g1_points(n - 1, 1) + [G1.zero()]
     Paff = CJ.to_affine(CJ.pack_g1(pts), CJ.FQ_OPS)
     digits = np.random.RandomState(1).randint(0, nb, size=n).astype(np.int32)
+    rows = msm._prep_rows(C.from_jax(tuple(np.asarray(x) for x in Paff)))
+    dig = torch.from_numpy(digits)[None]
+    outs = msm._window_v2(rows, dig, torch.zeros(1, dtype=torch.int64), c,
+                          "g1", Kc)
+    assert not bool(outs[7])
+    got = msm._assemble_buckets_batched(outs, 1, nb, n // Kc, "g1")
     order = np.argsort(digits, kind="stable")
-    d_sorted = digits[order]
     psort = tuple(x[..., order] for x in Paff)
-    tx, ty = C.from_jax(tuple(np.asarray(x) for x in psort))
-    M = n // Kc
-    pts3 = torch.cat([tx, ty]).reshape(24, M, Kc).permute(2, 0, 1).contiguous()
-    seg3 = torch.from_numpy(d_sorted).reshape(M, Kc).t()[:, None, :].contiguous()
-    segp3 = torch.cat([seg3[:1], seg3[:-1]])
-    scanned3, collided = K.bucket_scan_rows(pts3, seg3, segp3, "g1")
-    assert not bool(collided.any())
-    flat = tuple(v.permute(1, 2, 0).reshape(12, n) for v in scanned3)
-    scanned = tuple(jnp.asarray(a) for a in C.to_jax(flat))
-    got = jax.jit(lambda s, d: jmsm._carry_scatter(
-        s, d, nb, CJ.FQ_OPS, CJ.infinity_g1, Kc))(scanned, jnp.asarray(d_sorted))
     ref = jax.jit(lambda p, d: jmsm._bucket_sums(
         CJ.affine_to_jac(p, CJ.FQ_OPS), d, nb, CJ.FQ_OPS, CJ.infinity_g1))(
-        psort, jnp.asarray(d_sorted))
-    assert CJ.unpack_g1(got) == CJ.unpack_g1(ref)
-    # tails_only keeps exactly the last step of every lane
-    tails, _ = K.bucket_scan_rows(pts3, seg3, segp3, "g1", tails_only=True)
-    assert all(torch.equal(t[0], s[-1]) for t, s in zip(tails, scanned3))
+        psort, jnp.asarray(digits[order]))
+    assert _b(C.unpack_g1(got)) == _b(CJ.unpack_g1(ref))
+    sk, so = K.digit_sort(dig, nb)
+    tails, buckets, collided = K.bucket_scan_rows(rows, so, sk, Kc, "g1")
+    assert buckets is None and not bool(collided.any())
+    assert all(torch.equal(t, s) for t, s in zip(tails, outs[0]))
+    assert K.LAUNCHES["bucket_scan_rows"] == 0
 
 
 def test_jac_scan_plain_matches_golden_prefix_sums():

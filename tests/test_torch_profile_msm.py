@@ -1,6 +1,7 @@
 """The window profiler's stages on CPU tensors (every kernel its plain
 version), at 2^8 bases and c = 8 (nb = 129 buckets padded to 192, the
-K = 64 chunked reduce), and the shared timing helper.
+K = 64 chunked reduce), the shared timing helper, and the row orders
+`profile_kernels` times K5 at.
 
 The profiler holds its two off-route stages against the window
 program's route itself (the K3 phase 1's buckets against the K8 route's,
@@ -53,3 +54,22 @@ def test_time_ms_returns_the_last_output(stat):
 def test_time_ms_refuses_an_unknown_statistic():
     with pytest.raises(ValueError):
         time_ms(lambda: None, torch.device("cpu"), stat="median")
+
+
+def test_k5_row_orders_keep_the_shape_and_each_block_rows_set():
+    """The orders K5 is timed at: the MSM's own index array, its rows
+    sorted within each block row, and the table's rows in order."""
+    from zukelang_tpu_torch.profile_kernels import row_orders
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, 96, (3, 64), generator=gen, dtype=torch.int32)
+    orders = row_orders(idx, 96)
+    assert list(orders) == ["prove", "sorted", "arange"]
+    assert orders["prove"] is idx
+    srt = orders["sorted"]
+    assert srt.dtype == torch.int32 and srt.shape == idx.shape
+    assert bool((srt[:, 1:] >= srt[:, :-1]).all())
+    assert torch.equal(srt, torch.sort(idx, dim=-1).values)
+    seq = orders["arange"]
+    assert seq.dtype == torch.int32 and seq.shape == idx.shape
+    assert torch.equal(seq.reshape(-1),
+                       torch.arange(3 * 64, dtype=torch.int32) % 96)

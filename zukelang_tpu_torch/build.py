@@ -97,7 +97,8 @@ def library() -> ctypes.CDLL:
                                  zip(srcs, objs)))
         with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
             f.write("".join(log for _rc, log, _s in done))
-        failed = [log for rc, log, _s in done if rc != 0]
+        failed = [f"{os.path.basename(src)}:\n{log}"
+                  for src, (rc, log, _s) in zip(srcs, done) if rc != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "".join(failed)[-8000:])
         tmp = out + f".tmp{os.getpid()}"

@@ -121,11 +121,14 @@ __device__ __noinline__ void jac_add(Jac<G>& out, const Jac<G>& p,
 
 // p Jacobian + affine (qx, qy) with (0, 0) = infinity.  `same` reports the
 // doubling-degenerate lane (p == q, both finite), whose output is the
-// formula's garbage, exactly as the Pallas kernel leaves it.
+// formula's garbage, exactly as the Pallas kernel leaves it.  Inlined
+// where the caller runs it in a loop with the accumulator in registers
+// (K5); `jac_madd` is the out-of-line copy.
 template <class G>
-__device__ __noinline__ void jac_madd(Jac<G>& out, bool& same, const Jac<G>& p,
-                                      const typename G::E& qx,
-                                      const typename G::E& qy) {
+__device__ __forceinline__ void jac_madd_inl(Jac<G>& out, bool& same,
+                                             const Jac<G>& p,
+                                             const typename G::E& qx,
+                                             const typename G::E& qy) {
   using E = typename G::E;
   const bool p_inf = G::is_zero(p.Z);
   const bool q_inf = G::is_zero(qx) && G::is_zero(qy);
@@ -170,6 +173,13 @@ __device__ __noinline__ void jac_madd(Jac<G>& out, bool& same, const Jac<G>& p,
   out.X = X3;
   out.Y = Y3;
   out.Z = Z3;
+}
+
+template <class G>
+__device__ __noinline__ void jac_madd(Jac<G>& out, bool& same, const Jac<G>& p,
+                                      const typename G::E& qx,
+                                      const typename G::E& qy) {
+  jac_madd_inl<G>(out, same, p, qx, qy);
 }
 
 }  // namespace zk

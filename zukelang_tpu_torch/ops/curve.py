@@ -5,8 +5,9 @@ branch-free: infinity is Z == 0.  A point batch is a tuple (X, Y, Z) of
 Montgomery-form coordinates, `(12, N)` for G1 and `(2, 12, N)` for G2; an
 affine batch is (X, Y) with (0, 0) marking infinity.
 
-`point_add` and `point_double` are kernel K2, `point_madd` is K3 with a
-K2 fix-up (`ops.kernels`).  The other functions compose field
+`point_add`, `point_double` and `point_double_n` (a chain of doublings in
+one launch) are kernel K2, `point_madd` is K3 with a K2 fix-up
+(`ops.kernels`).  The other functions compose field
 operations, whose products are K1.
 """
 
@@ -37,6 +38,11 @@ def point_add(p: Point, q: Point) -> Point:
 
 def point_double(p: Point) -> Point:
     return K.point_double(p)
+
+
+def point_double_n(p: Point, counts) -> Point:
+    """Point i doubled counts[i] times (an (N,) int32 tensor or one int)."""
+    return K.point_double_n(p, counts)
 
 
 def point_neg(p: Point) -> Point:

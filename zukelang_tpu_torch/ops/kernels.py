@@ -50,12 +50,12 @@ _I32 = ctypes.c_int
 _ARGTYPES = {
     "zk_mont_mul": [_I32, _P, _P, _P, _I64, _P],
     "zk_point_add": [_I32] + [_P] * 9 + [_I64, _P],
-    "zk_point_double": [_I32] + [_P] * 6 + [_I64, _P],
+    "zk_point_double_n": [_I32] + [_P] * 4 + [_I32] + [_P] * 3 + [_I64, _P],
     "zk_point_madd": [_I32] + [_P] * 9 + [_I64, _P],
     "zk_digit_sort": [_P] * 6 + [_I64, _I64, _I32, ctypes.POINTER(_I32),
                                  _P],
-    "zk_bucket_scan_rows": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64,
-                            _I32, _P],
+    "zk_bucket_scan_rows": [_I32] + [_P] * 10 + [_I32, _I64, _I64, _I32,
+                                                  _P],
     "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P],
     "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I32, _I64, _P],
     "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
@@ -351,12 +351,18 @@ def mont_mul_looped(a: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K2  point_add / point_double
 # Replaces point_add_pallas / point_double_pallas (pallas_kernels.py:346,
-# :359) and their G2 forms (:529, :541).  One thread per element; the whole
-# group law runs in registers (spilling to local memory for G2).  Bound:
-# the ~16 (add) / ~6 (double) field products per element; launches are
-# small (the window combine, tails), so occupancy matters less than
-# correctness of every special case.
+# :359) and their G2 forms (:529, :541).  The add runs one thread per
+# element, the whole group law in registers (spilling to local memory for
+# G2); bound: ~16 field products per element on small launches.  The
+# doubling is one kernel that doubles point i counts[i] times
+# (`point_double_n`; `point_double` is count 1): the window combine's c w
+# doublings of window w in one launch, the point kept in registers across
+# the chain.  On that path it is bound by the chain's latency, so a group
+# of lanes works on one point, each running one of a level's independent
+# Fq products (G1: 3 lanes, levels of 3, 3, 1 products; G2: 7 lanes, 7,
+# 6, 3).
 # ---------------------------------------------------------------------------
+
 
 def point_add_plain(p, q):
     return _add(p, q, _OPS[group_of(p[0])])
@@ -364,6 +370,21 @@ def point_add_plain(p, q):
 
 def point_double_plain(p):
     return _dbl(p, _OPS[group_of(p[0])])
+
+
+def point_double_n_plain(p, counts):
+    """The masked loop of the JAX package's window combine: max(counts)
+    doublings of the whole batch, a point keeping its value once its count
+    is reached.  counts: an int, or an (N,) integer tensor."""
+    o = _OPS[group_of(p[0])]
+    if not isinstance(counts, torch.Tensor):
+        for _ in range(max(0, int(counts))):
+            p = _dbl(p, o)
+        return tuple(p)
+    for d in range(max(0, int(counts.max())) if counts.numel() else 0):
+        dbl = _dbl(p, o)
+        p = tuple(o.sel(d < counts, a, b) for a, b in zip(dbl, p))
+    return tuple(p)
 
 
 def point_add(p, q):
@@ -384,16 +405,33 @@ def point_add(p, q):
 
 
 def point_double(p):
+    return point_double_n(p, 1)
+
+
+def point_double_n(p, counts):
+    """Point i of the batch doubled counts[i] times (counts an (N,) int32
+    tensor, or one int for every point; 0 or less keeps the point), in one
+    launch."""
+    group = group_of(p[0])
+    n = p[0].shape[-1]
+    tensor = isinstance(counts, torch.Tensor)
+    if tensor and (counts.dim() != 1 or counts.shape[0] != n):
+        raise ValueError(f"point_double_n: counts {tuple(counts.shape)} "
+                         f"for {n} points")
     if p[0].device.type == "cpu":
-        return point_double_plain(p)
-    g2 = group_of(p[0]) == "g2"
+        return point_double_n_plain(p, counts)
     ins = [x.contiguous() for x in p]
-    _cuda_args(*ins)
-    n = ins[0].shape[-1]
+    cnt = counts.contiguous() if tensor else None
+    _cuda_args(*ins, *([cnt] if tensor else []))
+    if any(x.shape != ins[0].shape for x in ins):
+        raise ValueError("point_double_n coordinate shapes differ")
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("point_double", "zk_point_double", ins[0].device,
-                _I32(int(g2)), *(build.ptr(x) for x in ins),
+        _launch("point_double", "zk_point_double_n", ins[0].device,
+                _I32(int(group == "g2")),
+                *(build.ptr(x) for x in ins),
+                build.ptr(cnt) if tensor else _P(None),
+                _I32(0 if tensor else int(counts)),
                 *(build.ptr(x) for x in outs), _I64(n))
     return tuple(outs)
 
@@ -510,67 +548,128 @@ def digit_sort(keys: torch.Tensor, nkeys: int) -> Tuple[torch.Tensor, torch.Tens
 # K5  bucket_scan_rows
 # Replaces bucket_scan_rows (pallas_kernels.py:1296; kernel
 # _seg_scan_kernel2 :1192, call _seg_scan2_call :1253).  One thread per
-# chunk lane m; the loop over the K points of the chunk keeps the
-# accumulator and the collision flag in registers, in place of the Pallas
-# grid's sequential t axis.  Bound: 11 field products per point and the
-# (K, 2 rows, M) input stream, read coalesced along m.  tails_only writes
-# only each lane's final accumulator.
+# chunk of K positions; at each step the thread gathers its point's row
+# from the affine row table itself (16-byte loads; the block's indices and
+# segment ids staged in shared memory first) and runs the segmented mixed
+# add with the accumulator and the collision flag in registers, in place
+# of the Pallas grid's sequential t axis.  It writes only what the MSM
+# reads: each chunk's final accumulator and, with nb, each bucket's
+# in-chunk tail.  Bound: 11 field products per continuing step.
 # ---------------------------------------------------------------------------
 
-def bucket_scan_rows_plain(pts3, seg3, segp3, group: str,
-                           tails_only: bool = False):
+def _row_coord(v: torch.Tensor, group: str) -> torch.Tensor:
+    """(lanes, rows) words of one coordinate -> (12, lanes) / (2, 12, lanes)."""
+    v = v.t()
+    return v.reshape(2, v.shape[0] // 2, v.shape[1]) if group == "g2" else v
+
+
+def _segmented_madds(g, s, group: str):
+    """The scan of K5 and K8 in torch ops: g (lanes, K, 2 R) the affine
+    rows of each lane's K steps, s (lanes, K) segment ids or None (one
+    segment per lane).  Yields (t, accumulator, flag) after each step."""
     o = _OPS[group]
-    K, R2, M = pts3.shape
+    lanes, K, R2 = g.shape
     R = R2 // 2
-
-    def coord(x):
-        return x.reshape(2, R // 2, M) if group == "g2" else x
-
-    outs = []
-    flag = torch.zeros(M, dtype=torch.bool, device=pts3.device)
+    flag = torch.zeros(lanes, dtype=torch.bool, device=g.device)
     acc = None
     for t in range(K):
-        CX, CY = coord(pts3[t, :R]), coord(pts3[t, R:])
+        CX, CY = _row_coord(g[:, t, :R], group), _row_coord(g[:, t, R:], group)
         cinf = o.is_zero(CX) & o.is_zero(CY)
         CZ = o.sel(cinf, torch.zeros_like(CX), o.one(CX))
         if t == 0:
             acc = (CX, CY, CZ)
         else:
-            same_seg = seg3[t, 0] == segp3[t, 0]
+            cont = (s[:, t] == s[:, t - 1] if s is not None else
+                    torch.ones(lanes, dtype=torch.bool, device=g.device))
             X3, Y3, Z3, col = _madd(acc, (CX, CY), o)
-            acc = (o.sel(same_seg, X3, CX), o.sel(same_seg, Y3, CY),
-                   o.sel(same_seg, Z3, CZ))
-            flag = flag | (col & same_seg)
-        if not tails_only:
-            outs.append(acc)
-    if tails_only:
-        outs = [acc]
-    res = tuple(torch.stack([a[i].reshape(R, M) for a in outs])
-                for i in range(3))
-    return res, flag
+            acc = (o.sel(cont, X3, CX), o.sel(cont, Y3, CY),
+                   o.sel(cont, Z3, CZ))
+            flag = flag | (col & cont)
+        yield t, acc, flag
 
 
-def bucket_scan_rows(pts3, seg3, segp3, group: str, tails_only: bool = False):
-    """pts3 (K, 2 rows, M) stacked [X; Y] affine rows ((0, 0) = infinity),
-    seg3/segp3 (K, 1, M) -> ((K or 1, rows, M) X/Y/Z, (M,) bool flags)."""
-    if pts3.device.type == "cpu":
-        return bucket_scan_rows_plain(pts3, seg3, segp3, group, tails_only)
-    pts3, seg3, segp3 = (x.contiguous() for x in (pts3, seg3, segp3))
-    _cuda_args(pts3, seg3, segp3)
-    K, R2, M = pts3.shape
-    if R2 != (96 if group == "g2" else 48) // 2 or seg3.shape != (K, 1, M):
-        raise ValueError(f"bucket_scan_rows: bad shapes {pts3.shape}, "
-                         f"{seg3.shape} for {group}")
-    k_out = 1 if tails_only else K
-    outs = [torch.empty((k_out, R2 // 2, M), dtype=torch.int32,
-                        device=pts3.device) for _ in range(3)]
-    flag = torch.empty(M, dtype=torch.int32, device=pts3.device)
-    if M:
-        _launch("bucket_scan_rows", "zk_bucket_scan_rows", pts3.device,
-                _I32(int(group == "g2")), build.ptr(pts3), build.ptr(seg3),
-                build.ptr(segp3), *(build.ptr(x) for x in outs),
-                build.ptr(flag), _I32(K), _I64(M), _I32(int(tails_only)))
-    return tuple(outs), flag != 0
+def bucket_scan_rows_plain(rows, idx, seg, K: int, group: str,
+                           nb: int = None):
+    """The kernel's steps in torch ops, in its order, on the same gather."""
+    B, n = idx.shape
+    M = n // K
+    lanes = B * M
+    R = rows.shape[1] // 2
+    dev = rows.device
+    g = rows[idx.reshape(-1).to(torch.int64)].reshape(lanes, K, 2 * R)
+    s = seg.reshape(lanes, K) if seg is not None else None
+    if nb is not None:
+        buckets = [torch.zeros((R, B * nb), dtype=torch.int32, device=dev)
+                   for _ in range(3)]
+        # the segment id after each step: the next step's, and after the
+        # chunk's last the next chunk's first in the same row, else -1
+        after = torch.full((lanes, 1), -1, dtype=s.dtype, device=dev)
+        more = (torch.arange(lanes, device=dev) % M) + 1 < M
+        after[:-1, 0] = torch.where(more[:-1], s[1:, 0], after[:-1, 0])
+        s_next = torch.cat([s[:, 1:], after], dim=1)
+        col0 = (torch.arange(lanes, device=dev) // M) * nb
+    for t, acc, flag in _segmented_madds(g, s, group):
+        if nb is not None:
+            end = s_next[:, t] != s[:, t]
+            cols = (col0 + s[:, t])[end]
+            for bkt, a in zip(buckets, acc):
+                bkt[:, cols] = a.reshape(R, lanes)[:, end]
+    tails = tuple(a.reshape(R, lanes) for a in acc)
+    return tails, (tuple(buckets) if nb is not None else None), flag
+
+
+def bucket_scan_rows(rows, idx, seg, K: int, group: str, nb: int = None):
+    """Segmented mixed-add scan over rows gathered in the kernel.
+
+    rows (Nrows, 2 R) int32: affine [X; Y] points, R = 12 (G1) / 24 (G2)
+    words a coordinate, (0, 0) = infinity.  idx (B, n) int32 row indices
+    in [0, Nrows), n = M K: block row b is M chunks of K positions, chunk
+    (lane) l = b M + m takes positions m K .. m K + K - 1.  seg (B, n)
+    int32 sorted segment ids (>= 0) where the accumulator restarts at each
+    change, or None for one segment per chunk.  Returns (tails, buckets,
+    flag): tails 3 x (R, B M), each chunk's final accumulator; with nb
+    (seg ids in [0, nb)), buckets 3 x (R, B nb), column b nb + d the
+    accumulator where row b's segment d ends inside its chunk (zeros where
+    row b has no d), else None; flag (B M,) bool, the chunks whose mixed
+    add hit the doubling case (their results are garbage)."""
+    B, n = idx.shape if idx.dim() == 2 else (None, None)
+    R2 = 48 if group == "g2" else 24
+    if (B is None or K < 1 or K > 128 or n % K or rows.dim() != 2
+            or rows.shape[1] != R2
+            or (seg is not None and seg.shape != idx.shape)
+            or (nb is not None and (seg is None or nb < 1))):
+        raise ValueError(f"bucket_scan_rows: bad shapes rows "
+                         f"{tuple(rows.shape)}, idx {tuple(idx.shape)}, seg "
+                         f"{None if seg is None else tuple(seg.shape)}, K={K}, "
+                         f"nb={nb} for {group}")
+    if rows.device.type == "cpu":
+        return bucket_scan_rows_plain(rows, idx, seg, K, group, nb)
+    rows, idx = rows.contiguous(), idx.contiguous()
+    seg = seg.contiguous() if seg is not None else None
+    _cuda_args(rows, idx, *([seg] if seg is not None else []))
+    if rows.data_ptr() % 16:
+        raise ValueError("bucket_scan_rows: the row table must be 16-byte "
+                         "aligned")
+    M = n // K
+    lanes = B * M
+    dev = rows.device
+    tails = [torch.empty((R2 // 2, lanes), dtype=torch.int32, device=dev)
+             for _ in range(3)]
+    buckets = ([torch.zeros((R2 // 2, B * nb), dtype=torch.int32,
+                            device=dev) for _ in range(3)]
+               if nb is not None else [None] * 3)
+    flag = torch.empty(lanes, dtype=torch.int32, device=dev)
+    if lanes:
+        _launch("bucket_scan_rows", "zk_bucket_scan_rows", dev,
+                _I32(int(group == "g2")), build.ptr(rows), build.ptr(idx),
+                build.ptr(seg) if seg is not None else _P(None),
+                *(build.ptr(x) for x in tails),
+                *(build.ptr(x) if x is not None else _P(None)
+                  for x in buckets),
+                build.ptr(flag), _I32(K), _I64(lanes), _I64(M),
+                _I32(nb or 0))
+    return (tuple(tails), tuple(buckets) if nb is not None else None,
+            flag != 0)
 
 
 # ---------------------------------------------------------------------------
@@ -754,19 +853,18 @@ def weighted_chunk_sums(points, K: int, g: int = None):
 # ---------------------------------------------------------------------------
 
 def bucket_scan_plain(points, seg: torch.Tensor, K: int, group: str):
-    """K5's plain version on the chunk layout of the flat input."""
+    """K5's scan in torch ops on the chunk layout of the flat input, every
+    step kept."""
     X, Y = (x.reshape(-1, x.shape[-1]) for x in points)
-    M = X.shape[1] // K
-
-    def to3(v):
-        return v.reshape(v.shape[0], M, K).permute(2, 0, 1)
-
-    seg3 = to3(seg.reshape(1, -1))
-    segp3 = torch.cat([seg3[:1], seg3[:-1]], dim=0)
-    out3, flag = bucket_scan_rows_plain(to3(torch.cat([X, Y])), seg3, segp3,
-                                        group)
+    n = X.shape[1]
+    M = n // K
+    g = torch.cat([X, Y]).t().reshape(M, K, -1)
+    steps = list(_segmented_madds(g, seg.reshape(M, K), group))
+    flag = steps[-1][2]
     shape = points[0].shape
-    return tuple(v.permute(1, 2, 0).reshape(shape) for v in out3), flag
+    return tuple(torch.stack([acc[i].reshape(-1, M) for _t, acc, _f in steps],
+                             dim=-1).reshape(shape)
+                 for i in range(3)), flag
 
 
 def bucket_scan(points, seg: torch.Tensor, K: int, group: str):

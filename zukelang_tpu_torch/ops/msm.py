@@ -3,14 +3,15 @@
 Counterpart of `zukelang_tpu/ops/msm.py`:
 
   * `msm_many_staged_deferred` / `msm_staged_deferred`: signed-digit
-    Pippenger.  Per window: digit sort (K4), a row gather of the sorted,
-    sign-applied affine points, the in-chunk segmented mixed-add scan (K5);
-    then, batched over every window of every MSM, the cross-chunk carry
-    scan (K7), bucket assembly (K2), the weighted bucket reduction (K6,
-    K2) and the window combine (K2, K7).
+    Pippenger.  Per window: digit sort (K4), then the in-chunk segmented
+    mixed-add scan (K5) over the sorted, sign-applied affine points, which
+    K5 gathers from the row table itself; then, batched over every window
+    of every MSM, the cross-chunk carry scan (K7), bucket assembly (K2),
+    the weighted bucket reduction (K6, K2) and the window combine (one K2
+    chained-doubling launch, K7).
   * `fixed_base_mul`: batched g*s from a window table of multiples of the
-    generator (built with K7), summed by K5 in tails-only mode from 128
-    elements, by a window loop of K3 mixed adds below.
+    generator (built with K7), summed by K5 (one segment per element) from
+    128 elements, by a window loop of K3 mixed adds below.
 
   * `window_program`: the JAX package's per-window program
     (`_jit_window`), the route of its MSM profilers.  Affine bases take
@@ -421,41 +422,31 @@ def window_program(group: str, c: int, chunked: bool = True,
 def _window_v2(prec_rows: torch.Tensor, dig_signed: torch.Tensor,
                bases: torch.Tensor, c: int, group: str, K: int = CHUNK):
     """Bucket phase of every window: dig_signed (BW, n) signed digits,
-    bases (BW,) row offsets into prec_rows.  Returns
+    bases (BW,) row offsets into prec_rows.  K5 gathers the sorted,
+    sign-applied rows itself.  Returns
       tails_m (3 x (rows, BW*M))  in-chunk partials at each chunk end
       tail    (3 x (rows, BW*nb)) in-chunk partial at each bucket's tail
+                                  (zeros where the bucket is not `valid`)
       mb, needs_carry, valid (BW, nb); last_seg, first_seg (BW, M);
       collided (bool tensor)."""
     BW, n = dig_signed.shape
-    M = n // K
     nb = n_buckets(c)
     dev = dig_signed.device
     absd = dig_signed.abs()
     d_sorted, order = kern.digit_sort(absd, nb)
-    order = order.to(torch.int64)
-    s_sorted = torch.gather(dig_signed < 0, 1, order)
-    idx = order + n * s_sorted.to(torch.int64) + bases[:, None]
-    g = prec_rows[idx.reshape(-1)]                      # (BW*n, R)
-    R = g.shape[1]
-    L = BW * M
-    pts3 = g.reshape(BW, M, K, R).permute(2, 3, 0, 1).reshape(K, R, L)
-    seg3 = d_sorted.reshape(BW, M, K).permute(2, 0, 1).reshape(K, 1, L)
-    segp3 = torch.cat([seg3[:1], seg3[:-1]], dim=0)
-    scanned3, collided = kern.bucket_scan_rows(pts3, seg3, segp3, group)
-
+    s_sorted = torch.gather(dig_signed < 0, 1, order.to(torch.int64))
+    idx = (order + n * s_sorted.to(torch.int32)
+           + bases.to(torch.int32)[:, None])
+    tails_m, tail, collided = kern.bucket_scan_rows(prec_rows, idx, d_sorted,
+                                                    K, group, nb)
     last_seg = d_sorted[:, K - 1::K]
     first_seg = d_sorted[:, 0::K]
-    tails_m = tuple(v[K - 1] for v in scanned3)
-
     b_ids = torch.arange(nb, dtype=torch.int32, device=dev).expand(BW, nb)
     b_ids = b_ids.contiguous()
     pos = torch.searchsorted(d_sorted, b_ids, right=True) - 1
     posc = pos.clamp(0, n - 1)
     valid = (pos >= 0) & (torch.gather(d_sorted, 1, posc) == b_ids)
-    kb, mb = posc % K, posc // K
-    col = (kb * L + torch.arange(BW, device=dev)[:, None] * M + mb).reshape(-1)
-    tail = tuple(v.permute(1, 0, 2).reshape(v.shape[1], K * L)[:, col]
-                 for v in scanned3)
+    mb = posc // K
     start = torch.searchsorted(d_sorted, b_ids, right=False)
     needs_carry = valid & (start < mb * K)
     return (tails_m, tail, mb, needs_carry, valid, last_seg, first_seg,
@@ -509,23 +500,19 @@ def _wreduce_batched(v: C.Point, nblk: int, per: int,
     sum_w = tuple(x[..., :nblk] for x in inner_s)
     ws_s = tuple(x[..., nblk:] for x in inner_w)
     sum_s = tuple(x[..., nblk:] for x in inner_s)
-    for _ in range(K.bit_length() - 1):
-        ws_s = C.point_double(ws_s)
+    ws_s = C.point_double_n(ws_s, K.bit_length() - 1)
     return C.point_add(sum_w, ws_s), sum_s
 
 
 def _combine_windows(stacked: C.Point, c: int, n_windows: int,
                      n_msm: int = 1) -> C.Point:
     """Per-window sums (n_msm blocks of n_windows, low window first) ->
-    one point per MSM: window w doubled c*w times under a mask, then the
-    per-block sums."""
+    one point per MSM: window w doubled c*w times (one K2 launch), then
+    the per-block sums."""
     dev = stacked[0].device
-    widx = torch.arange(n_windows, device=dev).repeat(n_msm)
-    p = stacked
-    for d in range(c * (n_windows - 1)):
-        dbl = C.point_double(p)
-        cond = d < c * widx
-        p = tuple(kern.select_lanes(cond, a, b) for a, b in zip(dbl, p))
+    counts = c * torch.arange(n_windows, dtype=torch.int32,
+                              device=dev).repeat(n_msm)
+    p = C.point_double_n(stacked, counts)
     if n_msm == 1:
         return _total_auto(p)
     seg = torch.repeat_interleave(
@@ -713,8 +700,6 @@ def fixed_base_table_device(group: str, c: int, device) -> C.AffinePoint:
     return _fixed_base_table_device(group, c, torch.device(device))
 
 
-# Elements per K5 launch: bounds the gathered row stream (W * SLICE rows).
-_FB_SLICE = 1 << 17
 # Batches from this size take the rows path (K5); smaller ones the window
 # loop of K3 mixed adds, as in the JAX package (`msm.py:1302-1314`).
 _FB_ROWS_MIN = 128
@@ -723,9 +708,9 @@ _FB_ROWS_MIN = 128
 def fixed_base_mul(scalars_std: torch.Tensor, group: str = "g1", c: int = 8,
                    table: C.AffinePoint = None) -> C.Point:
     """[g * s for s in scalars] from the affine window table: from 128
-    elements, row gathers summed by K5 in tails-only mode, one segment per
-    element (chunk = W windows); below, W - 1 K3 mixed adds of each
-    window's table entry into the running sum."""
+    elements, K5 over the table's rows, one segment per element (chunk =
+    W windows); below, W - 1 K3 mixed adds of each window's table entry
+    into the running sum."""
     dev = scalars_std.device
     if table is None:
         table = fixed_base_table_device(group, c, str(dev))
@@ -749,32 +734,15 @@ def _fixed_base_madd(tX, tY, digits: torch.Tensor, c: int) -> C.Point:
 
 def _fixed_base_rows(tX, tY, digits: torch.Tensor, c: int,
                      group: str) -> C.Point:
-    """Fixed-base batch via the row-layout scan (K5, tails only): element
-    e's W window points are chunk e, one segment per element, so the
-    chunk's final accumulator is the element's sum.  A partial sum over
-    the low windows is below 2^(cw) times G while the next window's point
-    is a nonzero multiple of 2^(cw) G, so the doubling case of the mixed
-    add cannot occur; zero digits fetch the (0, 0) entry (infinity)."""
+    """Fixed-base batch via the row-layout scan (K5): element e's W window
+    points are chunk e, one segment per chunk, so the chunk's final
+    accumulator is the element's sum.  A partial sum over the low windows
+    is below 2^(cw) times G while the next window's point is a nonzero
+    multiple of 2^(cw) G, so the doubling case of the mixed add cannot
+    occur; zero digits fetch the (0, 0) entry (infinity)."""
     rows = torch.cat([_flat(tX), _flat(tY)], dim=0).t().contiguous()
-    npad = digits.shape[1]
-    slice_ = _FB_SLICE // (2 if group == "g2" else 1)
-    parts = [_fb_rows_slice(rows, digits[:, i:i + slice_], c, group)
-             for i in range(0, npad, slice_)]
-    return tuple(_to_curve(torch.cat([p[i] for p in parts], dim=-1), group)
-                 for i in range(3))
-
-
-def _fb_rows_slice(rows: torch.Tensor, digits: torch.Tensor, c: int,
-                   group: str):
-    """One fixed-base slice: row gather + tails-only K5 -> 3 x (rows, m)."""
-    W, m = digits.shape
-    offs = (torch.arange(W, dtype=torch.int64, device=digits.device) << c)
-    idx = (digits.t().to(torch.int64) + offs[None, :]).reshape(-1)
-    g = rows[idx]                                     # (m*W, R)
-    pts3 = g.reshape(m, W, g.shape[1]).permute(1, 2, 0)
-    seg3 = torch.arange(m, dtype=torch.int32, device=digits.device).expand(
-        W, 1, m)
-    scanned3, _ = kern.bucket_scan_rows(pts3, seg3, seg3, group,
-                                     tails_only=True)
-    return tuple(v[0] for v in scanned3)
-
+    W = digits.shape[0]
+    offs = torch.arange(W, dtype=torch.int32, device=digits.device) << c
+    idx = (digits.t() + offs[None, :]).contiguous()       # (m, W)
+    tails, _, _ = kern.bucket_scan_rows(rows, idx, None, W, group)
+    return tuple(_to_curve(v, group) for v in tails)

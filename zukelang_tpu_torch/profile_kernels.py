@@ -1,31 +1,43 @@
-"""K4 `digit_sort` and K6 `weighted_chunk_sums` timed at the provers' shapes.
+"""K4, K6 and the MSM stages of K2's doubling and K5, timed at the provers' shapes.
 
-    python -m zukelang_tpu_torch.profile_kernels
+    python -m zukelang_tpu_torch.profile_kernels [--sweep]
 
 K4 on the digit blocks of the provers' MSM batches (rows = windows, each
 2^16 digits below nb = 4097: Groth16 G1 and G2, Pinocchio ZK G1 and G2),
 on one 2^18 window (nb = 8193, the window profile) and on the 2^20
 batch (c = 16, nb = 32769), each beside the stable `torch.sort`; K6 at
 the chunk counts of the three levels of `msm._wreduce_batched` (K = 32)
-in each group of the Groth16 2^16 and Pinocchio ZK 2^14 proves.  Inputs
-are made on the card from a seed: uniform digits, and points with random
-coordinates below p.  Times: `timing.time_ms`, minimum of `--reps` after
-a warm-up, and the device time of one call (`torch.profiler`); with
-`--sweep`, K6 at every group width.  Also the registers and stack of
-both sources' kernels (`build.ptxas_entries`).  It calls only the wrappers' public signatures,
-so the same file times an earlier tree's kernels.  Needs a CUDA device;
-prints one JSON object as its last line.
+in each group of the Groth16 2^16 and Pinocchio ZK 2^14 proves.  Then
+the two MSM stages around K2's doubling and K5 at the same provers'
+shapes (c = 13, 20 windows an MSM, 2^16 points a table): the window
+combine `msm._combine_windows` and the bucket phase `msm._window_v2`
+(K4, K5), each with its device time, the device time of its row
+gathers (`index` kernels), its kernel launches and the peak of memory it
+allocates; and K5 on the bucket phase's own inputs beside the same call
+with its rows in order (`row_orders`), which tells the gather's cost from
+the arithmetic's.  Inputs are made on the card from a seed: uniform
+digits, and points with random coordinates below p.  Times:
+`timing.time_ms`, minimum of `--reps` after a warm-up, and the device
+time of one call (`torch.profiler`); with `--sweep`, K6 at every group
+width.  Also the registers and stack of the four sources' kernels
+(`build.ptxas_entries`).
+It calls only functions whose signatures an earlier tree shares (the
+wrappers' public signatures, `_combine_windows`, `_window_v2`), so the
+same file times an earlier tree's kernels.  Needs a CUDA device; prints
+one JSON object as its last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 
 import torch
 
 from . import build
 from .ops import kernels as K
+from .ops import msm
 from .timing import time_ms
 
 # (label, rows, log2 n, nkeys)
@@ -40,6 +52,14 @@ WSUM_LEVELS = (
     ("pinocchio_zk", "g1", (20640, 1600, 640)),
     ("pinocchio_zk", "g2", (5160, 400, 160)),
 )
+# (prover, group, tables, the table of each MSM): the MSM batches of one
+# prove, 2^16 points a table, c = 13 (20 windows an MSM)
+STAGE_BATCHES = (
+    ("groth16", "g1", 3, (0, 0, 1, 2)), ("groth16", "g2", 1, (0,)),
+    ("pinocchio_zk", "g1", 8, tuple(range(8))),
+    ("pinocchio_zk", "g2", 2, (0, 1)),
+)
+STAGE_LOG, STAGE_C = 16, 13
 _FQ_TOP = 0x1a0111ea   # top 32-bit limb of p: smaller top limbs are below p
 
 
@@ -66,12 +86,122 @@ def _device_ms(fn) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
+def _device_profile(fn):
+    """(device ms, device ms of the `index` (gather) kernels, kernel
+    launches) of one call of `fn`, from `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    total = sum(e.self_device_time_total for e in dev_events) / 1e3
+    gather = sum(e.self_device_time_total for e in dev_events
+                 if "index" in e.key.lower()) / 1e3
+    return total, gather, launches
+
+
+def _peak_mb(fn) -> float:
+    """MB allocated by one call of `fn` above what was allocated before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def row_orders(idx: torch.Tensor, n_rows: int) -> dict:
+    """K5 row index arrays of one shape that differ only in where the rows
+    lie: the MSM's own (`prove`: sorted by digit, so neighbouring steps and
+    lanes read scattered rows), the same rows sorted within each block row
+    (`sorted`: a lane's K steps read nearby rows), and rows in order
+    (`arange`: lane l reads rows l K .. l K + K - 1 of the table)."""
+    seq = torch.arange(idx.numel(), dtype=torch.int64, device=idx.device)
+    return {"prove": idx, "sorted": torch.sort(idx, dim=-1).values,
+            "arange": (seq % n_rows).to(torch.int32).reshape(idx.shape)}
+
+
+def k5_row_orders(run, dev, reps: int) -> dict:
+    """K5 on the inputs of its call in `run()` (the bucket phase), timed at
+    each of `row_orders` with the same segment ids, so the same steps
+    continue and only the rows' places (and so the gather) differ:
+    {order: {"ms", "device_ms"}}."""
+    seen = []
+    orig = K.bucket_scan_rows
+
+    def keep(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+    K.bucket_scan_rows = keep
+    try:
+        run()
+    finally:
+        K.bucket_scan_rows = orig
+    (rows, idx, seg, kc, group, *rest), kwargs = seen[0]
+    out = {}
+    for order, ix in row_orders(idx, rows.shape[0]).items():
+        def fn():
+            return K.bucket_scan_rows(rows, ix, seg, kc, group, *rest,
+                                      **kwargs)
+        out[order] = {"ms": time_ms(fn, dev, reps)[0],
+                      "device_ms": _device_ms(fn)}
+    return out
+
+
+def msm_stages(gen, dev, reps: int):
+    """The window combine and the bucket phase of each MSM batch of the
+    provers (`STAGE_BATCHES`), timed as one call each."""
+    n, c = 1 << STAGE_LOG, STAGE_C
+    W = -(-256 // c)
+    half = 1 << (c - 1)
+    rows = []
+    for prover, group, tables, pmap in STAGE_BATCHES:
+        BW = W * len(pmap)
+        aff = [tuple(_coord(group, n, gen, dev) for _ in range(2))
+               for _ in range(tables)]
+        precs = torch.cat([msm._prep_rows(t) for t in aff], dim=0)
+        dig = (torch.randint(0, 2 * half, (BW, n), generator=gen,
+                             dtype=torch.int32, device=dev) - (half - 1))
+        bases = torch.repeat_interleave(torch.tensor(
+            [p * 2 * n for p in pmap], dtype=torch.int64, device=dev), W)
+        stacked = tuple(_coord(group, BW, gen, dev) for _ in range(3))
+        row = {"prover": prover, "group": group, "windows": BW, "n": n,
+               "c": c}
+        for name, fn in (
+                ("combine", lambda: msm._combine_windows(stacked, c, W,
+                                                         len(pmap))),
+                ("window_v2", lambda: msm._window_v2(precs, dig, bases, c,
+                                                     group))):
+            ms, _ = time_ms(fn, dev, reps)
+            dev_ms, gather_ms, launches = _device_profile(fn)
+            row[name] = {"ms": ms, "device_ms": dev_ms,
+                         "gather_device_ms": gather_ms,
+                         "launches": launches, "peak_mb": _peak_mb(fn)}
+        if "idx" in inspect.signature(K.bucket_scan_rows).parameters:
+            row["k5_by_row_order"] = k5_row_orders(
+                lambda: msm._window_v2(precs, dig, bases, c, group), dev,
+                reps)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del precs, dig, aff
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sweep", action="store_true",
                     help="time K6 at every group width g, not only the "
                          "wrapper's choice")
+    ap.add_argument("--stages-only", action="store_true",
+                    help="only the combine and bucket-phase stages")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -81,7 +211,8 @@ def main(argv=None) -> dict:
     build.library()
 
     sorts = []
-    for label, rows, logn, nkeys in SORT_SHAPES:
+    for label, rows, logn, nkeys in (() if args.stages_only
+                                     else SORT_SHAPES):
         keys = torch.randint(0, nkeys, (rows, 1 << logn), generator=gen,
                              dtype=torch.int32, device=dev)
         ms, (sk, order) = time_ms(lambda: K.digit_sort(keys, nkeys), dev,
@@ -100,7 +231,7 @@ def main(argv=None) -> dict:
         del keys, sk, order, want, worder
 
     wsums = []
-    for prover, group, levels in WSUM_LEVELS:
+    for prover, group, levels in (() if args.stages_only else WSUM_LEVELS):
         for level, chunks in enumerate(levels, 1):
             P = tuple(_coord(group, chunks * 32, gen, dev) for _ in range(3))
             ms, _ = time_ms(lambda: K.weighted_chunk_sums(P, 32), dev,
@@ -115,10 +246,12 @@ def main(argv=None) -> dict:
             wsums.append(row)
             print(json.dumps(row), flush=True)
 
+    stages = msm_stages(gen, dev, args.reps)
     res = {"card": torch.cuda.get_device_name(0), "digit_sort": sorts,
-           "weighted_chunk_sums": wsums,
+           "weighted_chunk_sums": wsums, "msm_stages": stages,
            "ptxas": {src: build.ptxas_entries(src)
-                     for src in ("digit_sort.cu", "weighted_sums.cu")}}
+                     for src in ("digit_sort.cu", "weighted_sums.cu",
+                                 "point_ops.cu", "bucket_scan.cu")}}
     print(json.dumps(res))
     return res
 

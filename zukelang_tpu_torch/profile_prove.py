@@ -11,6 +11,8 @@ the canonical 2^16 domain), runs keygen and two warm-up proves, then:
     (from the first MSM launch to the last result read back, both groups)
     and the host rest (proof assembly, the ZK fold), beside the whole
     prove timed without those synchronisations;
+  * the peak of device memory of each of those proves
+    (`torch.cuda.max_memory_allocated` after a reset);
   * one prove under `torch.profiler`: the device's busy time (the sum of
     the device time of every kernel, copy and fill, counted on the device
     side only, not again under the host op that launched it), the number
@@ -124,10 +126,13 @@ def main(argv=None) -> dict:
 
     stages = {"witness_reduction_s": [], "msm_s": [], "host_s": []}
     mark = _instrument(stages)
+    peak_mb = []
     for i in range(args.repeats):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         prove(i)
         t1 = time.perf_counter()
+        peak_mb.append(torch.cuda.max_memory_allocated() / 2 ** 20)
         stages["msm_s"].append(mark["msm_end"] - mark["msm_start"])
         stages["host_s"].append(t1 - t0 - stages["witness_reduction_s"][-1]
                                 - stages["msm_s"][-1])
@@ -156,6 +161,7 @@ def main(argv=None) -> dict:
         "log_constraints": args.log, "domain_log": fc.logn,
         "prove_s": prove_s, "prove_runs_s": whole,
         **{k: min(v) for k, v in stages.items()},
+        "peak_memory_mb": peak_mb,
         "profiled_prove_s": profiled_s,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / 1e3 / prove_s,
