@@ -14,17 +14,21 @@ Phases (any failure raises and the script exits non-zero):
      K2's chained doubling at 2^12 with count 1 and at the window
      combine's 80 (G1) and 20 (G2) points with counts 13 w; K5 on a small
      row table with and without bucket tails, a forced collision flagged;
+     the NTT kernel's four forms at 2^1, 2^2, 2^10, 2^11, 2^12 and 2^16
+     (a batch of 3) and 2^20 (one vector);
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
   4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
      make_synthetic_r1cs(16, seed=1), every kernel launch counted; then
-     one more prove whose K4, K5, K6 and K2 doubling inputs are kept, and
-     each of those calls against its plain version: K4 on the G1
-     (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
+     one more prove whose witness reduction, K4, K5, K6, K7 and K2
+     doubling inputs are kept, and each of those calls against its plain
+     version: the fused witness reduction (the NTT kernel, a, b and h), K4
+     on the G1 (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
      `torch.sort`, K5 on both groups' whole blocks, K6 on the three levels
-     of the weighted reduction in each group, the doubling on the window
-     combine and the reduction's doublings in each group;
+     of the weighted reduction in each group, K7 on every carry scan, the
+     doubling on the window combine and the reduction's doublings in each
+     group; and the launches of one witness reduction (at most 10);
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
@@ -95,12 +99,18 @@ REPLACES = {
                     "zukelang_tpu/ops/pallas_kernels.py:807"),
     "mont_mul_looped": ("zukelang_tpu_torch/csrc/mont_mul_looped.cu",
                         "scripts/probe_looped_kernel.py:29"),
+    # K1 as the NTT's device function, in place of the XLA loop of gather
+    # butterflies (zukelang_tpu/ops/ntt.py:85) that calls K1 a stage
+    "ntt": ("zukelang_tpu_torch/csrc/ntt.cu",
+            "zukelang_tpu/ops/pallas_kernels.py:201"),
 }
 
 # the kernels each path must launch
 PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
                  "digit_sort", "bucket_scan_rows", "jac_scan",
-                 "weighted_chunk_sums")
+                 "weighted_chunk_sums", "ntt")
+NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
+MAX_WITNESS_REDUCTION_LAUNCHES = 10
 WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
                   "point_madd", "mont_mul")
 PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
@@ -316,10 +326,41 @@ def _k8_work(points, seg, K, group):
     return lambda got: (_nbytes(points, seg, got), _fq_ops(group, 11 * madds))
 
 
+# per NTT form: (products a point besides the butterflies, tables read)
+NTT_FORMS = {"ntt": (0, 0), "intt": (1, 0), "coset_ntt": (1, 1),
+             "coset_intt": (2, 1)}
+
+
+def _ntt_work(x, form: str):
+    """work(got) of one batched NTT form: an Fr product a butterfly
+    ((N/2) log N a vector) and the form's scalings; bytes: the input and
+    the twiddles and coset powers read once, the output written once."""
+    B, nl, n = x.shape
+    logn = n.bit_length() - 1
+    extra, tables = NTT_FORMS[form]
+    products = B * ((n // 2) * logn + extra * n)
+    return lambda got: (_nbytes(x, got) + 4 * nl * (n // 2 + tables * n),
+                        products * PRODUCTS["Fr"])
+
+
+def _witness_reduction_work(fc, args):
+    """work(got) of the fused witness reduction: the gate sums' products,
+    seven transforms of (N/2) log N butterflies and 10 N products of the
+    scalings and the quotient; bytes: the witness, the gate rows, the
+    twiddles and coset powers of both directions read once, a, b and h
+    written once."""
+    n = 1 << fc.logn
+    gate = sum(s.idx.size for s in (fc.l, fc.r, fc.lhs))
+    products = gate + 7 * (n // 2) * fc.logn + 10 * n
+    return lambda got: (_nbytes(args, got) + 4 * 8 * (n + 2 * n),
+                        products * PRODUCTS["Fr"])
+
+
 def kernel_checks(dev, rng: random.Random):
     import torch
     from zukelang_tpu_torch.ops import field as F
     from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import ntt
     from zukelang_tpu_torch.params import FQ, FR
 
     def rand_field(spec, n):
@@ -349,6 +390,15 @@ def kernel_checks(dev, rng: random.Random):
         if not torch.equal(K.mont_mul_looped(a, b, spec),
                            K.mont_mul(a, b, spec)):
             raise AssertionError("mont_mul_looped: differs from K1")
+
+    for logn, B in NTT_SHAPES:
+        x = rand_field(FR, B << logn).reshape(FR.nl, B, 1 << logn)
+        x = x.transpose(0, 1).contiguous()
+        for form in NTT_FORMS:
+            log(f"NTT {form} (B = {B}, 2^{logn})")
+            record("ntt", lambda: getattr(ntt, form)(x),
+                   lambda: getattr(ntt, form + "_plain")(x),
+                   _ntt_work(x, form), plain_reps=0)
 
     n2 = 1 << 12
     for group in ("g1", "g2"):
@@ -539,7 +589,8 @@ def _check_launches(path: str, counts: dict, required,
 
 def groth16_path(dev, log_constraints: int):
     import torch
-    from zukelang_tpu_torch import bench_lib
+    from zukelang_tpu_torch import bench_lib, profile_prove
+    from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.golden.field import Fr
     from zukelang_tpu_torch.ops import kernels as K
     from zukelang_tpu_torch.ops import msm
@@ -591,51 +642,85 @@ def groth16_path(dev, log_constraints: int):
     if not ok:
         raise AssertionError("groth16: proof does not verify")
     _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds)
-    seen = _capture_inputs(lambda: gd.prove_device(crs, fc, wm,
-                                                   Gen(b"bench-capture")),
-                           ("digit_sort", "weighted_chunk_sums",
-                            "bucket_scan_rows", "point_double_n"))
+    wr = profile_prove.witness_reduction_launches(fc, wm)
+    log(f"launches of one witness reduction: {wr['kernel_launches']} "
+        f"kernel launches, {wr['device_events']} device events "
+        f"({wr['device_ms']:.4f} device ms): {wr['by_kernel']}")
+    if not 0 < wr["device_events"] <= MAX_WITNESS_REDUCTION_LAUNCHES:
+        raise AssertionError(f"groth16: the witness reduction made "
+                             f"{wr['device_events']} device events, more "
+                             f"than {MAX_WITNESS_REDUCTION_LAUNCHES}")
+    seen = _capture_inputs(
+        lambda: gd.prove_device(crs, fc, wm, Gen(b"bench-capture")),
+        [(K, k) for k in ("digit_sort", "weighted_chunk_sums",
+                          "bucket_scan_rows", "point_double_n", "jac_scan")]
+        + [(te, "run_witness_reduction")])
     prove_path_kernel_checks(seen)
     return counts, per_prove
 
 
-def _capture_inputs(run, names):
-    """Run `run()` with the named kernel wrappers of `ops.kernels` wrapped
-    so that their arguments are kept: -> {name: [(args, kwargs) of each
-    call]}."""
-    from zukelang_tpu_torch.ops import kernels as K
-    seen = {k: [] for k in names}
-    orig = {k: getattr(K, k) for k in names}
+def _capture_inputs(run, targets):
+    """Run `run()` with the functions `targets` names ((module, name)
+    pairs: the kernel wrappers of `ops.kernels`, the witness reduction)
+    wrapped so that their arguments are kept: -> {name: [(args, kwargs)
+    of each call]}."""
+    seen = {k: [] for _m, k in targets}
+    orig = {k: (m, getattr(m, k)) for m, k in targets}
 
     def keep(name):
         def call(*args, **kwargs):
             seen[name].append((args, kwargs))
-            return orig[name](*args, **kwargs)
+            return orig[name][1](*args, **kwargs)
         return call
     try:
-        for k in names:
-            setattr(K, k, keep(k))
+        for m, k in targets:
+            setattr(m, k, keep(k))
         run()
     finally:
-        for k, fn in orig.items():
-            setattr(K, k, fn)
+        for k, (m, fn) in orig.items():
+            setattr(m, k, fn)
     return seen
 
 
 def prove_path_kernel_checks(seen):
-    """K4, K5, K6 and K2's doubling against their plain versions on one
-    Groth16 prove's own inputs: the G1 and G2 digit blocks, beside the
-    stable `torch.sort`; K5 on both groups' whole blocks; the three levels
-    of `_wreduce_batched` in each group; the window combine's chain and
-    the reduction's doublings in each group."""
+    """The witness reduction, K4, K5, K6, K7 and K2's doubling against
+    their plain versions on one Groth16 prove's own inputs: the fused
+    reduction's a, b and h; the G1 and G2 digit blocks, beside the stable
+    `torch.sort`; K5 on both groups' whole blocks; the three levels of
+    `_wreduce_batched` in each group; every carry scan of K7; the window
+    combine's chain and the reduction's doublings in each group."""
     import torch
+    from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
     sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
     scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
-    if (len(sorts), len(scans), len(wsums), len(dbls)) != (2, 2, 6, 6):
+    jscans, wreds = seen["jac_scan"], seen["run_witness_reduction"]
+    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != (
+            2, 2, 6, 6, 1):
         raise AssertionError(
             f"groth16 prove: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
-            f"K6 and {len(dbls)} doubling calls, expected 2, 2, 6 and 6")
+            f"K6, {len(dbls)} doubling calls and {len(wreds)} witness "
+            "reductions, expected 2, 2, 6, 6 and 1")
+    if {K.group_of(a[0][0]) for a, _kw in jscans} != {"g1", "g2"}:
+        raise AssertionError("groth16 prove: K7 did not scan both groups")
+    (fc, wm), _kw = wreds[0]
+    args = (*te._side_tensors(fc.l, wm.device),
+            *te._side_tensors(fc.r, wm.device),
+            *te._side_tensors(fc.lhs, wm.device), wm)
+    log(f"NTT kernel: the fused witness reduction at the prove's inputs "
+        f"(2^{fc.logn}, {fc.n_gates} gates; a, b and h)")
+    record("ntt", lambda: te.run_witness_reduction(fc, wm),
+           lambda: te.witness_reduction_plain(fc.logn)(*args),
+           _witness_reduction_work(fc, args), plain_reps=0)
+    for (pts, kc, *rest), kw in jscans:
+        sg = rest[0] if rest else kw.get("seg")
+        group = K.group_of(pts[0])
+        chunks = pts[0].shape[-1] // kc
+        log(f"K7 jac_scan at the prove's inputs ({group}, {chunks} chunks of "
+            f"{kc}, seg={sg is not None}, g = {K.jac_scan_group(chunks, kc)})")
+        record("jac_scan", lambda: K.jac_scan(pts, kc, sg),
+               lambda: K.jac_scan_plain(pts, kc, sg),
+               _jac_scan_work(group, pts, kc, sg), plain_reps=0)
     for (keys, nb), _kw in sorts:
         log(f"K4 digit_sort at the prove's inputs ({tuple(keys.shape)}, "
             f"nb = {nb})")

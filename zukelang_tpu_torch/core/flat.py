@@ -20,7 +20,7 @@ plain integer arrays, with the columns 0..V-1 as the variables.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -50,6 +50,9 @@ class FlatSide:
     t_var: np.ndarray      # (M,) int32 var column per nnz, ascending
     t_gate: np.ndarray     # (M,) int32 gate row per nnz
     t_coef: np.ndarray     # (nl, M) uint32 Montgomery coefficients
+    # (idx, coef) tensors by device, made at the first prove there
+    device_copies: dict = field(default_factory=dict, repr=False,
+                                compare=False)
 
 
 @dataclass

@@ -6,7 +6,8 @@ Counterpart of the device pipelines in `zukelang_tpu/engine/jax_engine.py`
 matvec :258-288).  The `Engine` class (`TorchEngine`) is later work.
 
   * witness reduction (prove side): per-gate evaluation as a dense padded
-    matvec -> iNTT -> coset pointwise ops -> h coefficients;
+    matvec -> iNTT -> coset pointwise ops -> h coefficients, in three
+    transforms of the NTT kernel with the pointwise steps fused;
   * evaluation at tau (keygen side): Lagrange values L_g(tau) over the
     radix-2 domain, then a var-sorted transpose matvec via a segmented
     log-depth scan.
@@ -14,7 +15,8 @@ matvec :258-288).  The `Engine` class (`TorchEngine`) is later work.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,45 +28,58 @@ from ..ops import ntt as ntt_mod
 from ..params import FR
 
 
-def _gate_eval(idx: torch.Tensor, coef: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
-    """Dense padded matvec: (G, K) idx + (nl, G, K) coef + (nl, V+1)
-    witness -> (nl, G) evaluations."""
-    nl, G, K = coef.shape
-    vals = w[:, idx.reshape(-1)]
-    prod = F.mont_mul(vals, coef.reshape(nl, G * K), FR).reshape(nl, G, K)
-    acc = prod[:, :, 0]
-    for k in range(1, K):
-        acc = F.add(acc, prod[:, :, k], FR)
-    return acc
+def _reduce(step, logn: int, sides, w: torch.Tensor):
+    """The witness reduction as three transforms (the NTT kernel's fused
+    sequence, `ops/ntt.py`): the gate sums at bit-reversed gates through
+    the inverse DIT -> a, b, c coefficients; the coset scaling through the
+    forward DIF -> evaluations in bit-reversed order; (a b - c) / Z_H
+    through the inverse DIT, with the coset unscaling -> h.  `step` is
+    `ntt.transform` or its plain version."""
+    abc = step(None, logn, inverse=True, dif=False, pre=ntt_mod.PRE_GATE,
+               gate=(sides, w), brev_in=True, scale_out=True)
+    cos = step(abc, logn, inverse=False, dif=True, coset_in=True)
+    h = step(cos, logn, inverse=True, dif=False, pre=ntt_mod.PRE_QUOT,
+             zinv=ntt_mod.zh_on_coset_inv(logn), scale_out=True,
+             coset_out=True)
+    return abc[0], abc[1], h[0]
+
+
+def witness_reduction_plain(logn: int, log_tile: Optional[int] = None):
+    """The plain version of `witness_reduction_fn` (`ntt.transform_plain`
+    at tiles of 2^log_tile points; None: one pass a transform)."""
+    step = functools.partial(ntt_mod.transform_plain, log_tile=log_tile)
+
+    def run(l_idx, l_coef, r_idx, r_coef, o_idx, o_coef, w):
+        return _reduce(step, logn, ((l_idx, l_coef), (r_idx, r_coef),
+                                    (o_idx, o_coef)), w)
+
+    return run
 
 
 def witness_reduction_fn(logn: int):
     """The witness-reduction pipeline for one domain size: gate evaluation
-    -> iNTT -> coset quotient -> h coefficients.  Returns (a, b, h)."""
-    n = 1 << logn
-    zinv = ntt_mod.zh_on_coset_inv(logn)
+    -> iNTT -> coset quotient -> h coefficients.  Returns (a, b, h).  On
+    the card it is six launches of the NTT kernel at 2^12 to 2^22 points
+    (three at or below 2^11); on the CPU its plain version.  idx: (G, K)
+    int32 witness columns; coef: (nl, G, K) Montgomery; w: (nl, V+1)."""
 
     def run(l_idx, l_coef, r_idx, r_coef, o_idx, o_coef, w):
-        def padded(x):
-            return torch.nn.functional.pad(x, (0, n - x.shape[1]))
-
-        a = ntt_mod.intt(padded(_gate_eval(l_idx, l_coef, w)))
-        b = ntt_mod.intt(padded(_gate_eval(r_idx, r_coef, w)))
-        c = ntt_mod.intt(padded(_gate_eval(o_idx, o_coef, w)))
-        a_cos = ntt_mod.coset_ntt(a)
-        b_cos = ntt_mod.coset_ntt(b)
-        c_cos = ntt_mod.coset_ntt(c)
-        p_cos = F.sub(F.mont_mul(a_cos, b_cos, FR), c_cos, FR)
-        h_cos = F.mont_mul(p_cos, F.const_mont(zinv, n, FR, w.device), FR)
-        return a, b, ntt_mod.coset_intt(h_cos)
+        return _reduce(ntt_mod.transform, logn, ((l_idx, l_coef),
+                                                 (r_idx, r_coef),
+                                                 (o_idx, o_coef)), w)
 
     return run
 
 
 def _side_tensors(side: flat_mod.FlatSide, device):
-    return (torch.from_numpy(side.idx.astype(np.int64)).to(device),
+    """(idx, coef) of a side on `device`, kept on the side after the first
+    call so that a prove copies nothing to the card."""
+    key = str(device)
+    if key not in side.device_copies:
+        side.device_copies[key] = (
+            torch.from_numpy(side.idx.astype(np.int32)).to(device),
             F._as_tensor(side.coef, device))
+    return side.device_copies[key]
 
 
 def run_witness_reduction(fc: flat_mod.FlatCircuit, witness_mont: torch.Tensor

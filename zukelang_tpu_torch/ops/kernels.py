@@ -35,7 +35,7 @@ from . import field as F
 
 KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
            "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums",
-           "bucket_scan", "mont_mul_looped")
+           "bucket_scan", "mont_mul_looped", "ntt")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -56,10 +56,13 @@ _ARGTYPES = {
                                  _P],
     "zk_bucket_scan_rows": [_I32] + [_P] * 10 + [_I32, _I64, _I64, _I32,
                                                   _P],
-    "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P],
+    "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _P],
     "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I32, _I64, _P],
     "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
     "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
+    # the NTT kernel (ops/ntt.py): a pointer to its NttArgs, s0, ns,
+    # first, last
+    "zk_ntt_pass": [_P, _I32, _I32, _I32, _I32, _P],
 }
 
 
@@ -675,44 +678,114 @@ def bucket_scan_rows(rows, idx, seg, K: int, group: str, nb: int = None):
 # ---------------------------------------------------------------------------
 # K7  jac_scan
 # Replaces jac_scan_pallas (pallas_kernels.py:986; kernel _jac_scan_kernel
-# :866, call _jac_scan_call :961).  One thread per chunk: an inclusive
-# prefix sum of the chunk's K Jacobian points with the full group law,
-# restarting where seg changes.  Bound: ~22 field products per point, in
-# registers with spills for G2; the chunk is read in place from the flat
-# (rows, N) layout (element t of chunk m at column m*K + t).
+# :866, call _jac_scan_call :961).  An inclusive prefix sum of each chunk
+# of K Jacobian points with the full group law, restarting where seg
+# changes, read in place from the flat (rows, N) layout (element t of
+# chunk m at column m*K + t).  A group of g lanes (`jac_scan_group`)
+# shares a chunk, L = K/g consecutive points a lane: each lane sums its
+# points, a shuffle scan over the g lane totals with the segmented
+# operator gives each lane its carry-in, and each lane scans its points
+# again from it.  Bound: the chain of dependent full adds per chunk
+# (2L - 1 + log2 g; K - 1 at g = 1), on launches too narrow to fill the
+# card at one thread per chunk.
 # ---------------------------------------------------------------------------
 
-def jac_scan_plain(points, K: int, seg: torch.Tensor = None):
+# Warps of a K7 launch up to which its adds do not queue on the card: on
+# an H100 a step of the chain took about the same time up to 600 warps
+# and about (warps / 600) ** 0.6 times as long beyond (`profile_kernels
+# --sweep`, every g at the Groth16 prove's scan shapes; PERF.md).
+SCAN_WARPS = 600
+
+
+def _scan_chain(K: int, g: int) -> int:
+    """Dependent full adds of one K7 chunk at g lanes."""
+    L = K // g
+    return K - 1 if g == 1 else 2 * L - 1 + g.bit_length() - 1
+
+
+def jac_scan_group(chunks: int, K: int) -> int:
+    """Lanes per chunk of K7: the power of two g (dividing K, at most 32)
+    with the least chain length x max(1, warps / SCAN_WARPS) ** 0.6.  A
+    pure function of the shapes: the wrapper and the plain version both
+    call it, so they add in the same order."""
+    gs = [1 << i for i in range(6) if K % (1 << i) == 0]
+    return min(gs, key=lambda g: _scan_chain(K, g) * max(
+        1.0, chunks * g / 32 / SCAN_WARPS) ** 0.6)
+
+
+def _lane_up(x: torch.Tensor, d: int, g: int) -> torch.Tensor:
+    """Per group of g lanes (the last axis), lane i gets lane i - d's value
+    (zeros where i < d): the kernel's __shfl_up_sync."""
+    xg = x.reshape(x.shape[:-1] + (-1, g))
+    out = torch.cat([torch.zeros_like(xg[..., :d]), xg[..., :g - d]], dim=-1)
+    return out.reshape(x.shape)
+
+
+def jac_scan_plain(points, K: int, seg: torch.Tensor = None, g: int = None):
+    """The kernel's additions in its order, g lanes per chunk (default
+    `jac_scan_group`); at g = 1 the sequential scan of each chunk."""
     o = _OPS[group_of(points[0])]
     n = points[0].shape[-1]
     M = n // K
-    p2 = [x.reshape(x.shape[:-1] + (M, K)) for x in points]
-    s2 = seg.reshape(M, K) if seg is not None else None
+    g = jac_scan_group(M, K) if g is None else g
+    L = K // g
+    dev = points[0].device
+    p3 = [x.reshape(x.shape[:-1] + (M * g, L)) for x in points]
+    restart = torch.zeros(n, dtype=torch.bool, device=dev)
+    if seg is not None:
+        restart[1:] = seg[1:] != seg[:-1]
+    restart[::K] = True                         # each chunk's first point
+    restart = restart.reshape(M * g, L)
+    lane = torch.arange(M * g, device=dev) % g
+
+    def at(t):
+        return tuple(x[..., t] for x in p3)
+
+    def seg_add(acc, t, start):
+        """acc + point t, or point t where it restarts."""
+        cur = at(t)
+        added = _add(start if start is not None else acc, cur, o)
+        return tuple(o.sel(restart[:, t], c, a) for c, a in zip(cur, added))
+
+    carry = None
+    if g > 1:
+        acc = at(0)
+        for t in range(1, L):
+            acc = seg_add(acc, t, None)
+        f = restart.any(dim=1)
+        d = 1
+        while d < g:
+            up = tuple(_lane_up(x, d, g) for x in acc)
+            fo = _lane_up(f, d, g)
+            added = _add(up, acc, o)
+            take = (lane >= d) & ~f
+            acc = tuple(o.sel(take, a, x) for a, x in zip(added, acc))
+            f = f | ((lane >= d) & fo)
+            d *= 2
+        carry = tuple(_lane_up(x, 1, g) for x in acc)
     outs = []
-    acc = None
-    for t in range(K):
-        cur = tuple(x[..., t] for x in p2)
-        if t == 0:
-            acc = cur
-        else:
-            a = _add(acc, cur, o)
-            if s2 is None:
-                acc = a
-            else:
-                cont = s2[:, t] == s2[:, t - 1]
-                acc = tuple(o.sel(cont, x, c) for x, c in zip(a, cur))
+    acc = at(0)
+    for t in range(L):
+        if t or g > 1:
+            acc = seg_add(acc, t, carry if t == 0 else None)
         outs.append(acc)
     return tuple(torch.stack([a[i] for a in outs], dim=-1).reshape(
         points[i].shape) for i in range(3))
 
 
-def jac_scan(points, K: int, seg: torch.Tensor = None):
-    """Per-chunk inclusive prefix sums: chunk m is columns [m*K, m*K+K)."""
+def jac_scan(points, K: int, seg: torch.Tensor = None, g: int = None):
+    """Per-chunk inclusive prefix sums: chunk m is columns [m*K, m*K+K);
+    with seg (N,) sorted ids, the sum restarts where seg changes.  g lanes
+    per chunk (default `jac_scan_group`; a power of two dividing K, at
+    most 32)."""
     n = points[0].shape[-1]
-    if n % K:
+    if K < 1 or n % K:
         raise ValueError(f"jac_scan: width {n} is not a multiple of {K}")
+    g = jac_scan_group(n // K, K) if g is None else g
+    if g < 1 or g > 32 or g & (g - 1) or K % g:
+        raise ValueError(f"jac_scan: {g} lanes per chunk of {K}")
     if points[0].device.type == "cpu":
-        return jac_scan_plain(points, K, seg)
+        return jac_scan_plain(points, K, seg, g)
     ins = [x.contiguous() for x in points]
     _cuda_args(*ins)
     segc = seg.contiguous() if seg is not None else None
@@ -724,7 +797,7 @@ def jac_scan(points, K: int, seg: torch.Tensor = None):
                 _I32(int(group_of(points[0]) == "g2")),
                 *(build.ptr(x) for x in ins),
                 build.ptr(segc) if segc is not None else _P(None),
-                *(build.ptr(x) for x in outs), _I32(K), _I64(n))
+                *(build.ptr(x) for x in outs), _I32(K), _I32(g), _I64(n))
     return tuple(outs)
 
 

@@ -1,4 +1,5 @@
-"""K4, K6 and the MSM stages of K2's doubling and K5, timed at the provers' shapes.
+"""K4, K6, K7, the NTT and the MSM stages of K2's doubling and K5, timed
+at the provers' shapes.
 
     python -m zukelang_tpu_torch.profile_kernels [--sweep]
 
@@ -15,15 +16,20 @@ combine `msm._combine_windows` and the bucket phase `msm._window_v2`
 gathers (`index` kernels), its kernel launches and the peak of memory it
 allocates; and K5 on the bucket phase's own inputs beside the same call
 with its rows in order (`row_orders`), which tells the gather's cost from
-the arithmetic's.  Inputs are made on the card from a seed: uniform
-digits, and points with random coordinates below p.  Times:
-`timing.time_ms`, minimum of `--reps` after a warm-up, and the device
-time of one call (`torch.profiler`); with `--sweep`, K6 at every group
-width.  Also the registers and stack of the four sources' kernels
-(`build.ptxas_entries`).
+the arithmetic's.  K7 at the first two levels of each group's carry
+scan in a Groth16 2^16 and a Pinocchio ZK 2^14 prove (K = 32, sorted
+segments); the four NTT forms on one 2^16 and one 2^20 vector, and the
+witness reduction of `make_synthetic_r1cs(16, seed=1)`, each with its
+device time and launches.  Inputs are made on the card
+from a seed: uniform digits, points with random coordinates below p,
+field elements below r.  Times: `timing.time_ms`, minimum of `--reps`
+after a warm-up, and the device time of one call (`torch.profiler`);
+with `--sweep`, K6 and K7 at every group width.  Also the registers and
+stack of the sources' kernels (`build.ptxas_entries`).
 It calls only functions whose signatures an earlier tree shares (the
-wrappers' public signatures, `_combine_windows`, `_window_v2`), so the
-same file times an earlier tree's kernels.  Needs a CUDA device; prints
+wrappers' public signatures, `_combine_windows`, `_window_v2`,
+`run_witness_reduction`), so the same file times an earlier tree's
+kernels.  Needs a CUDA device; prints
 one JSON object as its last line.
 """
 
@@ -35,9 +41,10 @@ import json
 
 import torch
 
-from . import build
+from . import bench_lib, build
+from .engine import torch_engine as te
 from .ops import kernels as K
-from .ops import msm
+from .ops import msm, ntt
 from .timing import time_ms
 
 # (label, rows, log2 n, nkeys)
@@ -60,6 +67,15 @@ STAGE_BATCHES = (
     ("pinocchio_zk", "g2", 2, (0, 1)),
 )
 STAGE_LOG, STAGE_C = 16, 13
+# (prover, group, points) of K7's first two calls in each group of a
+# prove (K = 32, seg)
+SCAN_SHAPES = (
+    ("groth16", "g1", 163840), ("groth16", "g1", 5120),
+    ("groth16", "g2", 40960), ("groth16", "g2", 1280),
+    ("pinocchio_zk", "g1", 327680), ("pinocchio_zk", "g1", 10240),
+    ("pinocchio_zk", "g2", 81920), ("pinocchio_zk", "g2", 2560),
+)
+NTT_LOGS = (16, 20)
 _FQ_TOP = 0x1a0111ea   # top 32-bit limb of p: smaller top limbs are below p
 
 
@@ -194,12 +210,65 @@ def msm_stages(gen, dev, reps: int):
     return rows
 
 
+def jac_scans(gen, dev, reps: int, sweep: bool):
+    """K7 at `SCAN_SHAPES` with sorted random segments."""
+    rows = []
+    for prover, group, n in SCAN_SHAPES:
+        P = tuple(_coord(group, n, gen, dev) for _ in range(3))
+        Z = P[2].reshape(-1, n)
+        Z[:, ::17] = 0                                 # infinities
+        seg = torch.cumsum(torch.randint(0, 2, (n,), generator=gen,
+                                         device=dev), 0).to(torch.int32)
+        ms, _ = time_ms(lambda: K.jac_scan(P, 32, seg), dev, reps)
+        g = (K.jac_scan_group(n // 32, 32) if hasattr(K, "jac_scan_group")
+             else 1)
+        row = {"prover": prover, "group": group, "points": n,
+               "chunks": n // 32, "g": g,
+               "ms": ms, "device_ms": _device_ms(lambda: K.jac_scan(P, 32,
+                                                                   seg))}
+        if sweep and g != 1:
+            row["ms_by_g"] = {w: time_ms(lambda: K.jac_scan(P, 32, seg, w),
+                                         dev, reps)[0]
+                              for w in (1, 2, 4, 8, 16, 32)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def ntt_forms(gen, dev, reps: int):
+    """The four NTT forms on one vector of each of `NTT_LOGS`, then the
+    witness reduction of the Groth16 2^16 prove's circuit."""
+    rows = []
+    for logn in NTT_LOGS:
+        x = torch.randint(-(1 << 31), 1 << 31, (8, 1 << logn), generator=gen,
+                          dtype=torch.int64, device=dev).to(torch.int32)
+        x[7] = torch.randint(0, 0x73eda753, (1 << logn,), generator=gen,
+                             device=dev).to(torch.int32)
+        for form in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            fn = getattr(ntt, form)
+            dev_ms, _g, launches = _device_profile(lambda: fn(x))
+            rows.append({"form": form, "logn": logn,
+                         "ms": time_ms(lambda: fn(x), dev, reps)[0],
+                         "device_ms": dev_ms, "launches": launches})
+            print(json.dumps(rows[-1]), flush=True)
+    inst = bench_lib.make_synthetic_r1cs(16, seed=1)
+    wm = inst.pack_witness(dev)
+    dev_ms, _g, launches = _device_profile(
+        lambda: te.run_witness_reduction(inst.fc, wm))
+    rows.append({"form": "witness_reduction", "logn": inst.fc.logn,
+                 "ms": time_ms(lambda: te.run_witness_reduction(inst.fc, wm),
+                               dev, reps)[0],
+                 "device_ms": dev_ms, "launches": launches})
+    print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sweep", action="store_true",
-                    help="time K6 at every group width g, not only the "
-                         "wrapper's choice")
+                    help="time K6 and K7 at every group width g, not only "
+                         "the wrapper's choice")
     ap.add_argument("--stages-only", action="store_true",
                     help="only the combine and bucket-phase stages")
     args = ap.parse_args(argv)
@@ -246,12 +315,18 @@ def main(argv=None) -> dict:
             wsums.append(row)
             print(json.dumps(row), flush=True)
 
+    scans = [] if args.stages_only else jac_scans(gen, dev, args.reps,
+                                                  args.sweep)
+    forms = [] if args.stages_only else ntt_forms(gen, dev, args.reps)
     stages = msm_stages(gen, dev, args.reps)
     res = {"card": torch.cuda.get_device_name(0), "digit_sort": sorts,
-           "weighted_chunk_sums": wsums, "msm_stages": stages,
+           "weighted_chunk_sums": wsums, "jac_scan": scans, "ntt": forms,
+           "msm_stages": stages,
            "ptxas": {src: build.ptxas_entries(src)
                      for src in ("digit_sort.cu", "weighted_sums.cu",
-                                 "point_ops.cu", "bucket_scan.cu")}}
+                                 "point_ops.cu", "bucket_scan.cu",
+                                 "jac_scan.cu", "ntt.cu")
+                     if src in build.report()}}
     print(json.dumps(res))
     return res
 

@@ -17,7 +17,10 @@ the canonical 2^16 domain), runs keygen and two warm-up proves, then:
     the device time of every kernel, copy and fill, counted on the device
     side only, not again under the host op that launched it), the number
     of kernel launches, and the device time and count of every kernel,
-    copy and fill, largest first.
+    copy and fill, largest first;
+  * one witness reduction alone under `torch.profiler`: its kernel
+    launches, its device-side events (kernels, copies and fills: every
+    launch, a torch op's included) and their device time.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -85,6 +88,41 @@ def _device_us(e) -> float:
     return float(e.self_device_time_total)
 
 
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def profiled(fn):
+    """One call of fn under torch.profiler, the card synchronised after it
+    -> (seconds on the host clock, [(name, device ms, count)] of the
+    device-side events largest first, kernel launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        seconds = time.perf_counter() - t0
+    events = prof.key_averages()
+    device = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda r: -r[1])
+    launches = sum(e.count for e in events if e.key in _LAUNCH_KEYS)
+    return seconds, device, launches
+
+
+def witness_reduction_launches(fc, witness) -> dict:
+    """Launches of one witness reduction (warm: its tables and the
+    circuit's device copies made by an earlier call)."""
+    te.run_witness_reduction(fc, witness)
+    _sync()
+    _s, device, launches = profiled(
+        lambda: te.run_witness_reduction(fc, witness))
+    return {"kernel_launches": launches,
+            "device_events": sum(n for _k, _ms, n in device),
+            "device_ms": sum(ms for _k, ms, _n in device),
+            "by_kernel": [[k, round(ms, 4), n] for k, ms, n in device]}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--protocol", choices=("groth16", "pinocchio"),
@@ -124,6 +162,7 @@ def main(argv=None) -> dict:
         prove(i)
         whole.append(time.perf_counter() - t0)
 
+    wr = witness_reduction_launches(fc, wm)
     stages = {"witness_reduction_s": [], "msm_s": [], "host_s": []}
     mark = _instrument(stages)
     peak_mb = []
@@ -137,19 +176,8 @@ def main(argv=None) -> dict:
         stages["host_s"].append(t1 - t0 - stages["witness_reduction_s"][-1]
                                 - stages["msm_s"][-1])
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove(0)
-        _sync()
-        profiled_s = time.perf_counter() - t0
-    events = prof.key_averages()
-    device = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in events
-                     if _device_us(e) > 0), key=lambda r: -r[1])
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
+    profiled_s, device, launches = profiled(lambda: prove(0))
+    device = [r for r in device if r[1] > 0]
     busy_ms = sum(ms for _k, ms, _n in device)
     if busy_ms <= 0:
         raise RuntimeError("profile_prove: the profiler recorded no device "
@@ -166,7 +194,9 @@ def main(argv=None) -> dict:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / 1e3 / prove_s,
         "kernel_launches": launches,
+        "device_events": sum(n for _k, _ms, n in device),
         "device_ms_by_kernel": [[k, round(ms, 4), n] for k, ms, n in device],
+        "witness_reduction": wr,
         "card": torch.cuda.get_device_name(0),
     }
     print(json.dumps(res))
