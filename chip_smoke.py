@@ -11,24 +11,31 @@ Phases (any failure raises and the script exits non-zero):
   2. every kernel against its plain PyTorch version on the card, at the
      paths' shapes; integer outputs must be equal; times from CUDA events
      after a warm-up, beside each kernel's bound (bytes or operations).
-     K2's chained doubling at 2^12 with count 1 and at the window
-     combine's 80 (G1) and 20 (G2) points with counts 13 w; K5 on a small
-     row table with and without bucket tails, a forced collision flagged;
+     K2's add at 2^12 (P == Q, P == -Q and infinity lanes), as a carry
+     add and as the small scan of 80 (G1) / 40 (G2) of those points; K2's
+     chained doubling at 2^12 with count 1 and at the window combine's 80
+     (G1) and 20 (G2) points with counts 13 w; K3 at 2^12 and 16 lanes,
+     and K3's chain on 16 lanes of 16 windows with a doubling lane; K5 on
+     a small row table with and without bucket tails, a forced collision
+     flagged;
      the NTT kernel's four forms at 2^1, 2^2, 2^10, 2^11, 2^12 and 2^16
      (a batch of 3) and 2^20 (one vector);
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
   4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
-     make_synthetic_r1cs(16, seed=1), every kernel launch counted; then
-     one more prove whose witness reduction, K4, K5, K6, K7 and K2
-     doubling inputs are kept, and each of those calls against its plain
-     version: the fused witness reduction (the NTT kernel, a, b and h), K4
-     on the G1 (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
+     make_synthetic_r1cs(16, seed=1), every kernel launch counted, K3's
+     chain held against its plain version on the keygen's small batch;
+     then one more prove whose witness reduction, K4, K5, K6, K7 and K2
+     inputs are kept, and each of those calls against its plain version:
+     the fused witness reduction (the NTT kernel, a, b and h), K4 on the
+     G1 (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
      `torch.sort`, K5 on both groups' whole blocks, K6 on the three levels
      of the weighted reduction in each group, K7 on every carry scan, the
      doubling on the window combine and the reduction's doublings in each
-     group; and the launches of one witness reduction (at most 10);
+     group, K2's add on each Hillis-Steele tail and window combine (the
+     small scan), each carry add and each add of the weighted reduction;
+     and the launches of one witness reduction (at most 10);
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
@@ -42,7 +49,8 @@ Phases (any failure raises and the script exits non-zero):
      against the K8 and K7 route; then every kernel the window program
      launches is checked against its plain version on the path's own
      inputs: K4 on the 2^18 window (beside the stable `torch.sort`), K8,
-     K3 at one step of the 8192 chunk lanes, K7 over the 8192 chunk tails
+     K3 at one step of the 8192 chunk lanes and K3's chain over the whole
+     chunked phase 1, K7 over the 8192 chunk tails
      (K = 32, segmented) and over the 8256 padded buckets (K = 64), and K2
      at those two widths;
   7. the looped-product probe at 2^20 Fq (`probe_looped`): its output
@@ -50,7 +58,9 @@ Phases (any failure raises and the script exits non-zero):
      sources; then the looped kernel against its plain version there.
 Phases 4 and 5 also print the launches of one prove.
 Each path of phases 4 to 7 starts from zeroed counts; every kernel of
-the path must have launched in it, and K3 in both keygens.  Then one JSON
+the path must have launched in it; K3 once a small fixed-base batch of
+both keygens (once in all for Groth16) and once a chunked phase 1; K2's
+add at most MAX_ADD_LAUNCHES times a prove.  Then one JSON
 line with the kernel summaries, the card line, and the last line
 {"ok": true, "device": {...}}.
 
@@ -63,7 +73,6 @@ from __future__ import annotations
 import json
 import os
 import random
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -81,11 +90,11 @@ PROBE_LOG = 20              # the JAX looped-kernel probe's size
 REPLACES = {
     "mont_mul": ("zukelang_tpu_torch/csrc/mont_mul.cu",
                  "zukelang_tpu/ops/pallas_kernels.py:201"),
-    "point_add": ("zukelang_tpu_torch/csrc/point_ops.cu",
+    "point_add": ("zukelang_tpu_torch/csrc/point_add.cu",
                   "zukelang_tpu/ops/pallas_kernels.py:346"),
     "point_double": ("zukelang_tpu_torch/csrc/point_ops.cu",
                      "zukelang_tpu/ops/pallas_kernels.py:359"),
-    "point_madd": ("zukelang_tpu_torch/csrc/point_ops.cu",
+    "point_madd": ("zukelang_tpu_torch/csrc/point_madd.cu",
                    "zukelang_tpu/ops/pallas_kernels.py:663"),
     "digit_sort": ("zukelang_tpu_torch/csrc/digit_sort.cu",
                    "zukelang_tpu/ops/pallas_kernels.py:1173"),
@@ -111,6 +120,9 @@ PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
                  "weighted_chunk_sums", "ntt")
 NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
 MAX_WITNESS_REDUCTION_LAUNCHES = 10
+# K2 add launches a prove: a Hillis-Steele tail, a combine, the carry
+# adds and the two weighted-reduction adds of each group's batch
+MAX_ADD_LAUNCHES = {"groth16": 15, "pinocchio": 15}
 WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
                   "point_madd", "mont_mul")
 PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
@@ -130,13 +142,6 @@ PRODUCTS = {"Fr": 2 * 8 * 8 + 8, "Fq": 2 * 12 * 12 + 12}
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +275,52 @@ def _add_work(group, P, Q):
                          for a, b in zip(P, Q)]).all(0)
     products = int(16 * (finite & ~equal).sum() + 15 * (finite & equal).sum())
     return lambda got: (_nbytes(P, Q, got), _fq_ops(group, products))
+
+
+def _carry_work(group, P, car, idx):
+    """work(got) of a K2 carry add: the add's products on the gathered
+    second operand (infinity where idx < 0); bytes: p, the carries and
+    the indices read once, the sums written once."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    take = idx >= 0
+    j = idx.clamp(min=0).long()
+    Q = tuple(K.select_lanes(take, c[..., j], torch.zeros_like(x))
+              for c, x in zip(car, P))
+    work = _add_work(group, P, Q)
+    return lambda got: (_nbytes(P, car, idx, got), work(got)[1])
+
+
+def _seg_scan_small_work(group, P, seg):
+    """work(got) of a K2 small scan: 16 coordinate products per add a
+    segmented prefix sum needs (both operands finite), counted on the
+    sequential scan as K7's bound counts it, not on the extra adds of
+    the Hillis-Steele rounds."""
+    import torch
+    inf = _zero_coord(P[2])[:, None]                          # (n, 1)
+    restart = (seg[1:] != seg[:-1])[:, None]
+    restart = torch.cat([torch.ones_like(restart[:1]), restart])
+    adds = _scan_adds(inf, restart)
+    return lambda got: (_nbytes(P, seg, got), _fq_ops(group, 16 * adds))
+
+
+def _chain_work(group, table, steps, digits, c, seg):
+    """work(got) of a K3 chain: 11 coordinate products per step with both
+    operands finite and no restart; bytes: the table entries its steps
+    gather, the digits or segment ids, read once, the sums written once."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    cols = K._chain_columns(table[0].shape[-1], steps, digits, c,
+                            table[0].device)                  # (steps, n)
+    inf = _zero_coord(table[0])[cols] & _zero_coord(table[1])[cols]
+    restart = torch.zeros_like(inf)
+    restart[0] = True
+    if seg is not None:
+        restart[1:] = seg[cols[1:]] != seg[cols[1:] - 1]
+    madds = _scan_adds(inf, restart)
+    entry = 2 * table[0].numel() // table[0].shape[-1] * 4
+    return lambda got: (cols.numel() * entry + _nbytes(digits, seg, got),
+                        _fq_ops(group, 11 * madds))
 
 
 def _madd_work(group, P, Qa):
@@ -417,6 +468,22 @@ def kernel_checks(dev, rng: random.Random):
         record("point_add", lambda: K.point_add(P, Q),
                lambda: K.point_add_plain(P, Q), _add_work(group, P, Q),
                plain_reps=1)
+        # the carry add, P[i] + Q[idx[i]] (nothing where idx < 0), and the
+        # small scan of the first 80 (G1) / 40 (G2) points in segments of 6
+        car = tuple(x[..., :n2 // 8] for x in Q)
+        idx = ((torch.arange(n2, device=dev) * 5) % (n2 // 8 + 3) - 3).to(
+            torch.int32)
+        log(f"K2 point_add_carry {group} (2^12 lanes, {n2 // 8} carries)")
+        record("point_add", lambda: K.point_add_carry(P, car, idx),
+               lambda: K.point_add_carry_plain(P, car, idx),
+               _carry_work(group, P, car, idx), plain_reps=1)
+        ns = 80 if group == "g1" else 40
+        Ps = tuple(x[..., :ns].contiguous() for x in P)
+        segs = (torch.arange(ns, device=dev) // 6).to(torch.int32)
+        log(f"K2 seg_scan_small {group} ({ns} points, segments of 6)")
+        record("point_add", lambda: K.seg_scan_small(Ps, segs),
+               lambda: K.seg_scan_small_plain(Ps, segs),
+               _seg_scan_small_work(group, Ps, segs), plain_reps=1)
         record("point_double", lambda: K.point_double(P),
                lambda: K.point_double_plain(P),
                lambda got: (_nbytes(P, got), _fq_ops(group, 7 * n2)),
@@ -460,6 +527,22 @@ def kernel_checks(dev, rng: random.Random):
             _got, flag = K.point_madd(Pm, Qa)
             if not bool(flag[1::5].all()) or bool(flag[2::5].any()):
                 raise AssertionError("point_madd: doubling flag wrong")
+
+        # the chain at the keygen's shape: 16 lanes, 16 windows of a
+        # random table of 2^4 entries each (entry 0 infinity); lane 3 adds
+        # its first point again (the doubling case)
+        cw, W = 4, 16
+        tX, tY = rand_coord(group, W << cw), rand_coord(group, W << cw)
+        tX[..., ::1 << cw], tY[..., ::1 << cw] = 0, 0
+        tX[..., (1 << cw) + 5] = tX[..., 5]
+        tY[..., (1 << cw) + 5] = tY[..., 5]
+        dig = torch.randint(0, 1 << cw, (W, 16), device=dev).to(torch.int32)
+        dig[0, 3] = dig[1, 3] = 5
+        tab = (tX, tY)
+        log(f"K3 point_madd_chain {group} (16 lanes, {W} windows)")
+        record("point_madd", lambda: K.point_madd_chain(tab, W, dig, cw),
+               lambda: K.point_madd_chain_plain(tab, W, dig, cw),
+               _chain_work(group, tab, W, dig, cw, None), plain_reps=1)
 
     c = 13
     nb = (1 << (c - 1)) + 1
@@ -578,13 +661,26 @@ def _diff(after: dict, before: dict) -> dict:
 
 
 def _check_launches(path: str, counts: dict, required,
-                    keygen_madds: int = None) -> None:
+                    keygen_madds: int = None, small_batches: int = None,
+                    per_prove: dict = None) -> None:
+    """Every kernel of the path launched; K3 once a small fixed-base
+    batch of keygen (its chain); K2's add at most MAX_ADD_LAUNCHES[path]
+    times a prove."""
     log(f"launch counts over the {path} run: {counts}")
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{path} never launched: {missing}")
     if keygen_madds is not None and keygen_madds <= 0:
         raise AssertionError(f"{path}: K3 did not launch in keygen")
+    if small_batches is not None and keygen_madds != small_batches:
+        raise AssertionError(f"{path}: K3 launched {keygen_madds} times in "
+                             f"keygen for {small_batches} small fixed-base "
+                             "batches (one chain a batch)")
+    if per_prove is not None and per_prove["point_add"] > MAX_ADD_LAUNCHES[
+            path]:
+        raise AssertionError(f"{path}: {per_prove['point_add']} K2 add "
+                             "launches a prove, more than "
+                             f"{MAX_ADD_LAUNCHES[path]}")
 
 
 def groth16_path(dev, log_constraints: int):
@@ -607,11 +703,15 @@ def groth16_path(dev, log_constraints: int):
     msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
     K.reset_counts()
     t0 = time.time()
-    crs, vkey = gd.keygen_device(fc, mids=list(inst.mids_cols),
-                                 ios=list(inst.ios_cols),
-                                 rng=Gen(b"bench-keygen"), device=dev)
+    out = {}
+    keygen_seen = _capture_inputs(
+        lambda: out.setdefault("keys", gd.keygen_device(
+            fc, mids=list(inst.mids_cols), ios=list(inst.ios_cols),
+            rng=Gen(b"bench-keygen"), device=dev)),
+        [(K, "point_madd_chain"), (msm, "_fixed_base_madd")])
     torch.cuda.synchronize()
     keygen_s = time.time() - t0
+    crs, vkey = out["keys"]
     keygen_madds = K.LAUNCHES["point_madd"]
     wm = inst.pack_witness(dev)
     t0 = time.time()
@@ -641,7 +741,19 @@ def groth16_path(dev, log_constraints: int):
     log(f"launches per prove: {per_prove}")
     if not ok:
         raise AssertionError("groth16: proof does not verify")
-    _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds)
+    _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds,
+                    len(keygen_seen["_fixed_base_madd"]), per_prove)
+    if keygen_madds != 1:
+        raise AssertionError(f"groth16: {keygen_madds} K3 launches in keygen, "
+                             "expected 1 (the io batch's chain)")
+    for (tab, steps, dig, cw), _kw in keygen_seen["point_madd_chain"]:
+        log(f"K3 point_madd_chain at the keygen's inputs ({dig.shape[1]} "
+            f"lanes, {steps} windows of 2^{cw}, lanes a point "
+            f"{K.MADD_CHAIN_LANES[K.group_of(tab[0])]})")
+        record("point_madd", lambda: K.point_madd_chain(tab, steps, dig, cw),
+               lambda: K.point_madd_chain_plain(tab, steps, dig, cw),
+               _chain_work(K.group_of(tab[0]), tab, steps, dig, cw, None),
+               plain_reps=0)
     wr = profile_prove.witness_reduction_launches(fc, wm)
     log(f"launches of one witness reduction: {wr['kernel_launches']} "
         f"kernel launches, {wr['device_events']} device events "
@@ -653,7 +765,8 @@ def groth16_path(dev, log_constraints: int):
     seen = _capture_inputs(
         lambda: gd.prove_device(crs, fc, wm, Gen(b"bench-capture")),
         [(K, k) for k in ("digit_sort", "weighted_chunk_sums",
-                          "bucket_scan_rows", "point_double_n", "jac_scan")]
+                          "bucket_scan_rows", "point_double_n", "jac_scan",
+                          "point_add", "point_add_carry", "seg_scan_small")]
         + [(te, "run_witness_reduction")])
     prove_path_kernel_checks(seen)
     return counts, per_prove
@@ -683,12 +796,14 @@ def _capture_inputs(run, targets):
 
 
 def prove_path_kernel_checks(seen):
-    """The witness reduction, K4, K5, K6, K7 and K2's doubling against
-    their plain versions on one Groth16 prove's own inputs: the fused
-    reduction's a, b and h; the G1 and G2 digit blocks, beside the stable
-    `torch.sort`; K5 on both groups' whole blocks; the three levels of
-    `_wreduce_batched` in each group; every carry scan of K7; the window
-    combine's chain and the reduction's doublings in each group."""
+    """The witness reduction, K4, K5, K6, K7, K2's doubling and K2's add
+    against their plain versions on one Groth16 prove's own inputs: the
+    fused reduction's a, b and h; the G1 and G2 digit blocks, beside the
+    stable `torch.sort`; K5 on both groups' whole blocks; the three levels
+    of `_wreduce_batched` in each group; every carry scan of K7; the
+    window combine's chain and the reduction's doublings in each group;
+    every K2 add: each Hillis-Steele tail and window combine (the small
+    scan), each carry add and the weighted reduction's adds."""
     import torch
     from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
@@ -755,6 +870,37 @@ def prove_path_kernel_checks(seen):
         record("point_double", lambda: K.point_double_n(pts, counts),
                lambda: K.point_double_n_plain(pts, counts),
                _double_work(group, pts, counts), plain_reps=0)
+    adds, carries = seen["point_add"], seen["point_add_carry"]
+    smalls = seen["seg_scan_small"]
+    n_adds = len(adds) + len(carries) + len(smalls)
+    if not carries or not smalls or n_adds > MAX_ADD_LAUNCHES["groth16"]:
+        raise AssertionError(
+            f"groth16 prove: {len(adds)} adds, {len(carries)} carry adds and "
+            f"{len(smalls)} small scans, expected some of each and at most "
+            f"{MAX_ADD_LAUNCHES['groth16']} in all")
+    for (pts, sg), _kw in smalls:
+        group, n = K.group_of(pts[0]), pts[0].shape[-1]
+        log(f"K2 seg_scan_small at the prove's inputs ({group}, {n} points, "
+            f"{int((sg[1:] != sg[:-1]).sum()) + 1} segments, lanes a point "
+            f"{K.point_lanes(group, n, 'scan')})")
+        record("point_add", lambda: K.seg_scan_small(pts, sg),
+               lambda: K.seg_scan_small_plain(pts, sg),
+               _seg_scan_small_work(group, pts, sg), plain_reps=0)
+    for (pts, car, ix), _kw in carries:
+        group, n = K.group_of(pts[0]), pts[0].shape[-1]
+        log(f"K2 point_add_carry at the prove's inputs ({group}, {n} lanes, "
+            f"{car[0].shape[-1]} carries, {int((ix >= 0).sum())} taken, "
+            f"lanes a point {K.point_lanes(group, n)})")
+        record("point_add", lambda: K.point_add_carry(pts, car, ix),
+               lambda: K.point_add_carry_plain(pts, car, ix),
+               _carry_work(group, pts, car, ix), plain_reps=0)
+    for (pts, q), _kw in adds:
+        group, n = K.group_of(pts[0]), pts[0].shape[-1]
+        log(f"K2 point_add at the prove's inputs ({group}, {n} lanes, lanes "
+            f"a point {K.point_lanes(group, n)})")
+        record("point_add", lambda: K.point_add(pts, q),
+               lambda: K.point_add_plain(pts, q), _add_work(group, pts, q),
+               plain_reps=0)
 
 
 def pinocchio_path(dev, log_constraints: int):
@@ -767,8 +913,12 @@ def pinocchio_path(dev, log_constraints: int):
 
     msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
     K.reset_counts()
-    run = bench_lib.run_pinocchio(log_constraints, seed=1, repeats=3,
-                                  zk=True, device=dev)
+    out = {}
+    small = _capture_inputs(
+        lambda: out.setdefault("run", bench_lib.run_pinocchio(
+            log_constraints, seed=1, repeats=3, zk=True, device=dev)),
+        [(msm, "_fixed_base_madd")])["_fixed_base_madd"]
+    run = out["run"]
     res = run.record()
     after_zk = dict(K.LAUNCHES)        # keygen + ZK proves + verify
     args = (run.pkey, run.inst.fc, run.witness)
@@ -798,7 +948,8 @@ def pinocchio_path(dev, log_constraints: int):
     log(f"launches per NonZK prove: {nonzk_per_prove}")
     if not ok:
         raise AssertionError("pinocchio: NonZK proof does not verify")
-    _check_launches("pinocchio", counts, PROVE_KERNELS, keygen_madds)
+    _check_launches("pinocchio", counts, PROVE_KERNELS, keygen_madds,
+                    len(small), per_prove)
     return counts, per_prove
 
 
@@ -830,7 +981,12 @@ def window_path(dev, logn: int, c: int):
     from zukelang_tpu_torch.ops import msm
 
     K.reset_counts()
-    res, st = profile_msm.profile(logn, c, dev, log=log)
+    out = {}
+    phase1 = _capture_inputs(
+        lambda: out.setdefault("profile", profile_msm.profile(logn, c, dev,
+                                                              log=log)),
+        [(msm, "_madd_chunk_scan")])["_madd_chunk_scan"]
+    res, st = out["profile"]
     t0 = time.time()
     combined = _windows_combined(st["points"], st["digits"], c)
     windows_s = time.time() - t0
@@ -847,6 +1003,10 @@ def window_path(dev, logn: int, c: int):
         raise AssertionError("window path: the combined windows differ from "
                              "msm_staged")
     _check_launches("window profile", counts, WINDOW_KERNELS)
+    if counts["point_madd"] != len(phase1):
+        raise AssertionError(f"window profile: {counts['point_madd']} K3 "
+                             f"launches for {len(phase1)} chunked phase 1 "
+                             "runs (one chain each)")
 
     pts, scs, scalars, ks = profile_msm.make_inputs(GOLDEN_LOG, dev)
     digits = msm._scalars_to_signed_windows(scs, c)
@@ -896,6 +1056,14 @@ def path_kernel_checks(st, logn: int, c: int):
     record("point_madd", lambda: K.point_madd(acc, cur),
            lambda: K.point_madd_plain(acc, cur),
            _madd_work("g1", acc, cur), plain_reps=1)
+    lanes = p8[0].shape[-1] // Kc
+    log(f"K3 point_madd_chain at the path's inputs (the chunked phase 1: "
+        f"{lanes} lanes of {Kc} steps, lanes a point "
+        f"{K.MADD_CHAIN_LANES['g1']})")
+    record("point_madd",
+           lambda: K.point_madd_chain(p8, Kc, seg=s8, keep=True),
+           lambda: K.point_madd_chain_plain(p8, Kc, seg=s8, keep=True),
+           _chain_work("g1", p8, Kc, None, 0, s8), plain_reps=0)
 
     # the carry scan of `_carry_scatter` over the K8 chunk tails, and the
     # weighted reduce's prefix scan over the reversed, padded buckets
@@ -949,6 +1117,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from zukelang_tpu_torch import build, native
     from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.timing import card_line
 
     dev = torch.device("cuda:0")
     card = card_line()

@@ -7,8 +7,9 @@ affine batch is (X, Y) with (0, 0) marking infinity.
 
 `point_add`, `point_double` and `point_double_n` (a chain of doublings in
 one launch) are kernel K2, `point_madd` is K3 with a K2 fix-up
-(`ops.kernels`).  The other functions compose field
-operations, whose products are K1.
+(`ops.kernels`; the paths take K3's chain, `kernels.point_madd_chain`,
+and `point_madd` stays as the reference the tests hold the chain to).
+The other functions compose field operations, whose products are K1.
 """
 
 from __future__ import annotations

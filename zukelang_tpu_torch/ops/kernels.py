@@ -49,9 +49,12 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _ARGTYPES = {
     "zk_mont_mul": [_I32, _P, _P, _P, _I64, _P],
-    "zk_point_add": [_I32] + [_P] * 9 + [_I64, _P],
+    "zk_point_add": [_I32] + [_P] * 10 + [_I64, _I64, _I32, _P],
+    "zk_seg_scan_small": [_I32] + [_P] * 7 + [_I32, _I32, _P],
     "zk_point_double_n": [_I32] + [_P] * 4 + [_I32] + [_P] * 3 + [_I64, _P],
     "zk_point_madd": [_I32] + [_P] * 9 + [_I64, _P],
+    "zk_point_madd_chain": [_I32, _P, _P, _I64, _P, _I32, _P, _I32, _P, _P,
+                            _P, _I64, _I32, _P],
     "zk_digit_sort": [_P] * 6 + [_I64, _I64, _I32, ctypes.POINTER(_I32),
                                  _P],
     "zk_bucket_scan_rows": [_I32] + [_P] * 10 + [_I32, _I64, _I64, _I32,
@@ -60,6 +63,7 @@ _ARGTYPES = {
     "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I32, _I64, _P],
     "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
     "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
+    "zk_fq_mul_chain": [_P, _P, _P, _I32, _P],
     # the NTT kernel (ops/ntt.py): a pointer to its NttArgs, s0, ns,
     # first, last
     "zk_ntt_pass": [_P, _I32, _I32, _I32, _I32, _P],
@@ -351,24 +355,132 @@ def mont_mul_looped(a: torch.Tensor, b: torch.Tensor,
                             spec)
 
 
+def fq_mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """a * b^reps * R^-reps for one Fq element ((12, 1) each): on the card
+    `reps` dependent K1 products on one thread (csrc/mont_mul.cu), the
+    probe of one product's latency behind the point kernels' chain
+    bounds; counted as a `mont_mul` launch.  On no path."""
+    if a.shape != (FQ.nl, 1) or b.shape != (FQ.nl, 1) or reps < 0:
+        raise ValueError(f"fq_mul_chain: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, {reps} reps")
+    if a.device.type == "cpu":
+        for _ in range(reps):
+            a = mont_mul_plain(a, b, FQ)
+        return a
+    a, b = a.contiguous(), b.contiguous()
+    _cuda_args(a, b)
+    out = torch.empty_like(a)
+    _launch("mont_mul", "zk_fq_mul_chain", a.device, build.ptr(a),
+            build.ptr(b), build.ptr(out), _I32(reps))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K2  point_add / point_double
 # Replaces point_add_pallas / point_double_pallas (pallas_kernels.py:346,
-# :359) and their G2 forms (:529, :541).  The add runs one thread per
-# element, the whole group law in registers (spilling to local memory for
-# G2); bound: ~16 field products per element on small launches.  The
-# doubling is one kernel that doubles point i counts[i] times
-# (`point_double_n`; `point_double` is count 1): the window combine's c w
-# doublings of window w in one launch, the point kept in registers across
-# the chain.  On that path it is bound by the chain's latency, so a group
-# of lanes works on one point, each running one of a level's independent
-# Fq products (G1: 3 lanes, levels of 3, 3, 1 products; G2: 7 lanes, 7,
-# 6, 3).
+# :359) and their G2 forms (:529, :541).  On the provers' paths both are
+# bound by latency: most launches are narrow (a few to a few thousand
+# points) and each point is a chain of dependent field products.  So both
+# run on a group of lanes a point, each lane running some of a level's
+# independent Fq products (csrc/point_lanes.cuh).
+# The add (csrc/point_add.cu) takes L = `point_lanes(group, n)` lanes a
+# point (G1 1 or 4; G2 1, 4 or 8: a chain of 5 / 8 Fq products against
+# 16 / 48 at one thread), in three launch forms, each counted as a
+# `point_add` launch:
+#   `point_add(p, q)`: p + q lane by lane;
+#   `point_add_carry(p, car, idx)`: p[i] + car[idx[i]], nothing added
+#     where idx[i] < 0, the carry add of a chunked scan (the selection and
+#     gather in the kernel);
+#   `seg_scan_small(points, seg)`: the Hillis-Steele segmented scan of up
+#     to SEG_SCAN_SMALL_MAX points in one launch of one block.
+# The doubling (csrc/point_ops.cu) doubles point i counts[i] times in one
+# kernel (`point_double_n`; `point_double` is count 1): the window
+# combine's c w doublings of window w in one launch, the point kept in
+# registers across the chain (G1: 3 lanes, levels of 3, 3, 1 products;
+# G2: 7 lanes, 7, 6, 3).
 # ---------------------------------------------------------------------------
+
+# Fq products on the dependent chain of one add at L lanes a point, and of
+# one step of K3's chain (csrc/point_lanes.cuh); L = 1 is jac_add, one
+# thread.
+POINT_CHAIN = {
+    "add": {"g1": {1: 16, 4: 5}, "g2": {1: 48, 4: 13, 8: 8}},
+    "madd": {"g1": 5, "g2": 5},
+}
+# The add's width model, from `profile_kernels --sweep --points-only` on
+# an H100 (device times; PERF.md): the device us of one add at L lanes a
+# point on a launch too narrow to queue, and the warps up to which that
+# holds (beyond, the time grows with the warps).  A round of the small
+# scan takes the add's step for each pass of its one block of
+# SEG_SCAN_SMALL_WARPS warps over the points.
+POINT_STEP_US = {"g1": {1: 30, 4: 11}, "g2": {1: 100, 4: 57, 8: 46}}
+POINT_WARPS = 500
+# Lanes a point the add is built for (csrc/point_add.cu).
+POINT_LANES = {g: tuple(POINT_STEP_US[g]) for g in ("g1", "g2")}
+# Lanes a point of K3's chain (csrc/point_madd.cu), fixed per group as the
+# doubling's are: its launches (16 to 8,192 lanes) are all narrow enough
+# for the widest group (the sweep in PERF.md).
+MADD_CHAIN_LANES = {"g1": 4, "g2": 8}
+SEG_SCAN_SMALL_MAX = 256   # points of one `seg_scan_small` launch
+SEG_SCAN_SMALL_WARPS = 8   # its block (kScanSmallThreads in point_add.cu)
+
+
+def point_lanes(group: str, n: int, op: str = "add") -> int:
+    """Lanes a point of K2's add (op "add") or its small scan ("scan")
+    over n points: the L of `POINT_LANES` with the least step x max(1,
+    warps / POINT_WARPS), or for the scan the least step x passes of its
+    block over the points.  A pure function of the shapes; the words do
+    not depend on it (every field result is canonical)."""
+    step = POINT_STEP_US[group]
+    if op == "scan":
+        return min(step, key=lambda L: step[L] * -(
+            -n * L // (32 * SEG_SCAN_SMALL_WARPS)))
+    if op != "add":
+        raise ValueError(f"point_lanes: no width model for {op!r}")
+    return min(step, key=lambda L: step[L] * max(
+        1.0, n * L / 32 / POINT_WARPS))
+
+
+def _check_lanes(group: str, lanes: int, what: str) -> None:
+    if lanes not in POINT_LANES[group]:
+        raise ValueError(f"{what}: {lanes} lanes a point for {group} (built: "
+                         f"{POINT_LANES[group]})")
 
 
 def point_add_plain(p, q):
     return _add(p, q, _OPS[group_of(p[0])])
+
+
+def point_add_carry_plain(p, car, idx):
+    """p[i] + car[idx[i]], car at infinity where idx[i] < 0."""
+    take = idx >= 0
+    j = idx.clamp(min=0).to(torch.int64)
+    q = tuple(select_lanes(take, c[..., j], torch.zeros_like(x))
+              for c, x in zip(car, p))
+    return point_add_plain(p, q)
+
+
+def hs_rounds(points, seg, add):
+    """Inclusive segmented prefix sum along the batch axis (seg sorted) by
+    the Hillis-Steele rounds of the JAX package's `_hs_segmented_scan`
+    (zukelang_tpu/ops/msm.py:119-143), each round one `add` of the
+    batch and its shift."""
+    n = seg.shape[-1]
+    idx = torch.arange(n, device=seg.device)
+    X, Y, Z = points
+    for d in range(max(1, (n - 1).bit_length())):
+        sh = 1 << d
+        prev = tuple(torch.roll(v, sh, dims=-1) for v in (X, Y, Z))
+        valid = (idx >= sh) & (seg == torch.roll(seg, sh))
+        added = add((X, Y, Z), prev)
+        X, Y, Z = (select_lanes(valid, a, v)
+                   for a, v in zip(added, (X, Y, Z)))
+    return X, Y, Z
+
+
+def seg_scan_small_plain(points, seg):
+    """`hs_rounds` on `point_add_plain`."""
+    return hs_rounds(points, seg, point_add_plain)
 
 
 def point_double_plain(p):
@@ -390,20 +502,86 @@ def point_double_n_plain(p, counts):
     return tuple(p)
 
 
-def point_add(p, q):
+def _coords(pts, what: str):
+    """Contiguous coordinates of one batch, all of one shape."""
+    ins = [x.contiguous() for x in pts]
+    if any(x.shape != ins[0].shape for x in ins):
+        raise ValueError(f"{what}: coordinate shapes differ")
+    return ins
+
+
+def _add_launch(p, q, idx, lanes):
+    group = group_of(p[0])
+    ps, qs = _coords(p, "point_add"), _coords(q, "point_add")
+    n, nq = ps[0].shape[-1], qs[0].shape[-1]
+    if ps[0].shape[:-1] != qs[0].shape[:-1] or (idx is None and nq != n):
+        raise ValueError(f"point_add: operands {tuple(ps[0].shape)} and "
+                         f"{tuple(qs[0].shape)}")
+    lanes = point_lanes(group, n) if lanes is None else lanes
+    _cuda_args(*ps, *qs, *([idx] if idx is not None else []))
+    outs = [torch.empty_like(ps[0]) for _ in range(3)]
+    if n:
+        _launch("point_add", "zk_point_add", ps[0].device,
+                _I32(int(group == "g2")), *(build.ptr(x) for x in ps + qs),
+                build.ptr(idx) if idx is not None else _P(None),
+                *(build.ptr(x) for x in outs), _I64(n), _I64(nq),
+                _I32(lanes))
+    return tuple(outs)
+
+
+def point_add(p, q, lanes: int = None):
+    """p + q lane by lane (add-2007-bl, every special case); lanes a point
+    on the card: `point_lanes` unless given."""
+    if lanes is not None:
+        _check_lanes(group_of(p[0]), lanes, "point_add")
     if p[0].device.type == "cpu":
         return point_add_plain(p, q)
-    g2 = group_of(p[0]) == "g2"
-    ins = [x.contiguous() for x in (*p, *q)]
-    _cuda_args(*ins)
-    n = ins[0].shape[-1]
-    if any(x.shape != ins[0].shape for x in ins):
-        raise ValueError("point_add coordinate shapes differ")
+    return _add_launch(p, q, None, lanes)
+
+
+def point_add_carry(p, car, idx: torch.Tensor, lanes: int = None):
+    """p[i] + car[idx[i]] lane by lane, nothing added where idx[i] < 0: a
+    chunked scan's carry add (idx (n,) int32, entries below car's
+    width)."""
+    if idx.dim() != 1 or idx.shape[0] != p[0].shape[-1]:
+        raise ValueError(f"point_add_carry: idx {tuple(idx.shape)} for "
+                         f"{p[0].shape[-1]} points")
+    if lanes is not None:
+        _check_lanes(group_of(p[0]), lanes, "point_add_carry")
+    if p[0].device.type == "cpu":
+        return point_add_carry_plain(p, car, idx)
+    return _add_launch(p, car, idx.contiguous(), lanes)
+
+
+def seg_scan_small(points, seg: torch.Tensor, lanes: int = None):
+    """Inclusive segmented prefix sum of n <= SEG_SCAN_SMALL_MAX points
+    along the batch axis (seg (n,) sorted ids, int32), in one launch: the
+    Hillis-Steele rounds of `seg_scan_small_plain`, word for word."""
+    n = seg.shape[-1]
+    if (seg.dim() != 1 or not 1 <= n <= SEG_SCAN_SMALL_MAX
+            or points[0].shape[-1] != n):
+        raise ValueError(f"seg_scan_small: {points[0].shape[-1]} points, "
+                         f"seg {tuple(seg.shape)} (at most "
+                         f"{SEG_SCAN_SMALL_MAX})")
+    if lanes is not None:
+        _check_lanes(group_of(points[0]), lanes, "seg_scan_small")
+    if points[0].device.type == "cpu":
+        return seg_scan_small_plain(points, seg)
+    return _seg_scan_small_launch(points, seg, lanes)
+
+
+def _seg_scan_small_launch(points, seg, lanes):
+    n = seg.shape[-1]
+    group = group_of(points[0])
+    ins = _coords(points, "seg_scan_small")
+    segc = seg.contiguous()
+    lanes = point_lanes(group, n, "scan") if lanes is None else lanes
+    _cuda_args(*ins, segc)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
-    if n:
-        _launch("point_add", "zk_point_add", ins[0].device, _I32(int(g2)),
-                *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
-                _I64(n))
+    _launch("point_add", "zk_seg_scan_small", ins[0].device,
+            _I32(int(group == "g2")), *(build.ptr(x) for x in ins),
+            build.ptr(segc), *(build.ptr(x) for x in outs), _I32(n),
+            _I32(lanes))
     return tuple(outs)
 
 
@@ -440,16 +618,22 @@ def point_double_n(p, counts):
 
 
 # ---------------------------------------------------------------------------
-# K3  point_madd
+# K3  point_madd, point_madd_chain
 # Replaces point_madd_pallas / point_madd_pallas_g2 (pallas_kernels.py:663,
-# :680; kernels _point_madd_kernel / _point_madd_kernel2 :594, :615).  One
-# thread per element runs madd-2007-bl (11 field products) in registers,
-# as K2 does.  Bound: the field products; the batches on its path are
-# small (fixed-base keygen batches under 128 elements, one launch per
-# window), so each launch is mostly launch latency.  The flag marks the
-# doubling-degenerate lanes (P == Q, both finite), whose output is the
-# formula's garbage exactly as in the Pallas kernel; `ops.curve.point_madd`
-# repairs them with K2's doubling.
+# :680; kernels _point_madd_kernel / _point_madd_kernel2 :594, :615):
+# madd-2007-bl (11 field products), csrc/point_madd.cu.
+#   `point_madd(p, q)`: the Pallas contract, one thread a lane; the flag
+#     marks the doubling-degenerate lanes (P == Q, both finite), whose
+#     output is the formula's garbage exactly as in the Pallas kernel
+#     (`ops.curve.point_madd` repairs them with K2's doubling).
+#   `point_madd_chain(table, steps, ...)`: the paths' form.  Each lane sums
+#     `steps` affine points in one launch with the doubling case resolved
+#     in the kernel, on `MADD_CHAIN_LANES[group]` lanes a point: a
+#     fixed-base batch's window loop (the table entries gathered in the
+#     kernel from the digits) or phase 1 of the chunked bucket sums
+#     (restarts at segment changes, every step stored).  Bound: the chain
+#     of steps on launches of 16 to 8,192 lanes; it replaces a loop of one
+#     K3 launch, one host read of the flags and one Python step a step.
 # ---------------------------------------------------------------------------
 
 def point_madd_plain(p, q):
@@ -465,11 +649,9 @@ def point_madd(p, q):
     if p[0].device.type == "cpu":
         return point_madd_plain(p, q)
     g2 = group_of(p[0]) == "g2"
-    ins = [x.contiguous() for x in (*p, *q)]
+    ins = _coords((*p, *q), "point_madd")
     _cuda_args(*ins)
     n = ins[0].shape[-1]
-    if any(x.shape != ins[0].shape for x in ins):
-        raise ValueError("point_madd coordinate shapes differ")
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     flag = torch.empty(n, dtype=torch.int32, device=ins[0].device)
     if n:
@@ -477,6 +659,104 @@ def point_madd(p, q):
                 *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
                 build.ptr(flag), _I64(n))
     return tuple(outs), flag != 0
+
+
+def _affine_to_jac(q, o: FieldOps):
+    X, Y = q
+    inf = o.is_zero(X) & o.is_zero(Y)
+    return X, Y, o.sel(inf, torch.zeros_like(X), o.one(X))
+
+
+def _chain_columns(width: int, steps: int, digits, c: int, device):
+    """(steps, lanes) int64 table columns of each step of each lane."""
+    w = torch.arange(steps, dtype=torch.int64, device=device)[:, None]
+    if digits is not None:
+        return digits.to(torch.int64) + (w << c)
+    lanes = torch.arange(width // steps, dtype=torch.int64, device=device)
+    return lanes[None, :] * steps + w
+
+
+def point_madd_chain_plain(table, steps: int, digits=None, c: int = 0,
+                           seg=None, keep: bool = False):
+    """The loop of `point_madd_plain` with the doubling fix-up
+    (`point_double_plain` of the accumulator where a lane is flagged),
+    step by step, with the restarts and stores of `point_madd_chain`."""
+    o = _OPS[group_of(table[0])]
+    tX, tY = table
+    cols = _chain_columns(tX.shape[-1], steps, digits, c, tX.device)
+
+    def at(w):
+        return tX[..., cols[w]], tY[..., cols[w]]
+
+    acc = _affine_to_jac(at(0), o)
+    outs = [acc]
+    for w in range(1, steps):
+        q = at(w)
+        added, same = point_madd_plain(acc, q)
+        if bool(same.any()):
+            dbl = point_double_plain(acc)
+            added = tuple(o.sel(same, d, a) for d, a in zip(dbl, added))
+        if seg is not None:
+            restart = seg[cols[w]] != seg[cols[w] - 1]
+            added = tuple(o.sel(restart, r, a)
+                          for r, a in zip(_affine_to_jac(q, o), added))
+        acc = added
+        outs.append(acc)
+    if not keep:
+        return tuple(acc)
+    return tuple(torch.stack([s[i] for s in outs], dim=-1).reshape(
+        acc[i].shape[:-1] + (-1,)) for i in range(3))
+
+
+def point_madd_chain(table, steps: int, digits: torch.Tensor = None,
+                     c: int = 0, seg: torch.Tensor = None, keep: bool = False):
+    """Lane e sums `steps` affine points of `table` ((X, Y) of width T,
+    (0, 0) = infinity) by mixed adds, in one launch:
+      * with digits (steps, n) int32: step w takes column
+        (w << c) + digits[w, e] (a fixed-base window table); n lanes;
+      * without: step w takes column e * steps + w (chunks of the flat
+        batch); T / steps lanes, and with seg (T,) int32 step w restarts
+        from its point where seg changes from step w - 1.
+    The sum starts at step 0's point; where an add hits the doubling case
+    the accumulator is doubled, as `ops.curve.point_madd` does.  Returns
+    the Jacobian sums (lanes), or with keep every step's sum in the chunk
+    layout (lane e's step w at column e * steps + w)."""
+    tX = table[0]
+    T = tX.shape[-1]
+    bad = (steps < 1 or (digits is None and T % steps)
+           or (digits is not None and (digits.dim() != 2
+                                       or digits.shape[0] != steps
+                                       or seg is not None))
+           or (seg is not None and seg.shape != (T,)))
+    if bad:
+        raise ValueError(f"point_madd_chain: table {tuple(tX.shape)}, "
+                         f"{steps} steps, digits "
+                         f"{None if digits is None else tuple(digits.shape)}, "
+                         f"seg {None if seg is None else tuple(seg.shape)}")
+    if tX.device.type == "cpu":
+        return point_madd_chain_plain(table, steps, digits, c, seg, keep)
+    return _chain_launch(table, steps, digits, c, seg, keep)
+
+
+def _chain_launch(table, steps, digits, c, seg, keep):
+    T = table[0].shape[-1]
+    group = group_of(table[0])
+    n = digits.shape[1] if digits is not None else T // steps
+    ins = _coords(table, "point_madd_chain")
+    dig = digits.contiguous() if digits is not None else None
+    sg = seg.contiguous() if seg is not None else None
+    _cuda_args(*ins, *(x for x in (dig, sg) if x is not None))
+    width = n * steps if keep else n
+    outs = [torch.empty(ins[0].shape[:-1] + (width,), dtype=torch.int32,
+                        device=ins[0].device) for _ in range(3)]
+    if n:
+        _launch("point_madd", "zk_point_madd_chain", ins[0].device,
+                _I32(int(group == "g2")), build.ptr(ins[0]),
+                build.ptr(ins[1]), _I64(T),
+                build.ptr(dig) if dig is not None else _P(None), _I32(c),
+                build.ptr(sg) if sg is not None else _P(None), _I32(steps),
+                *(build.ptr(x) for x in outs), _I64(n), _I32(int(keep)))
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------

@@ -6,19 +6,20 @@ Counterpart of `zukelang_tpu/ops/msm.py`:
     Pippenger.  Per window: digit sort (K4), then the in-chunk segmented
     mixed-add scan (K5) over the sorted, sign-applied affine points, which
     K5 gathers from the row table itself; then, batched over every window
-    of every MSM, the cross-chunk carry scan (K7), bucket assembly (K2),
-    the weighted bucket reduction (K6, K2) and the window combine (one K2
-    chained-doubling launch, K7).
+    of every MSM, the cross-chunk carry scan (K7, its carry adds and its
+    Hillis-Steele tail each one K2 launch), bucket assembly (one K2 carry
+    add), the weighted bucket reduction (K6, K2) and the window combine
+    (one K2 chained-doubling launch, then one K2 small scan or K7).
   * `fixed_base_mul`: batched g*s from a window table of multiples of the
     generator (built with K7), summed by K5 (one segment per element) from
-    128 elements, by a window loop of K3 mixed adds below.
+    128 elements, by one K3 chain launch of the window loop below.
 
   * `window_program`: the JAX package's per-window program
     (`_jit_window`), the route of its MSM profilers.  Affine bases take
     the K8 route (`_bucket_sums_fused`: K4 sort, gather, K8 scan, carry
-    scatter with K7 and K2); the chunked (K3 loop) and Jacobian (log-depth
-    K2 scan) variants keep their JAX routes.  `msm_staged` returns a
-    golden point.
+    scatter with K7 and K2); the chunked (one K3 chain) and Jacobian
+    (log-depth K2 scan) variants keep their JAX routes.  `msm_staged`
+    returns a golden point.
 
 Where the JAX package scans over windows, the v2 MSM runs each stage once
 over all windows: the windows' chunk lanes sit side by side in one
@@ -142,18 +143,11 @@ def _prep_rows(points: C.AffinePoint) -> torch.Tensor:
 
 def _hs_segmented_scan(points: C.Point, seg: torch.Tensor) -> C.Point:
     """Inclusive segmented prefix sum along the batch axis (seg sorted),
-    log-depth: each round one K2 point add."""
-    n = seg.shape[-1]
-    idx = torch.arange(n, device=seg.device)
-    X, Y, Z = points
-    for d in range(max(1, (n - 1).bit_length())):
-        sh = 1 << d
-        prev = tuple(torch.roll(v, sh, dims=-1) for v in (X, Y, Z))
-        valid = (idx >= sh) & (seg == torch.roll(seg, sh))
-        added = C.point_add((X, Y, Z), prev)
-        X, Y, Z = (kern.select_lanes(valid, a, v)
-                   for a, v in zip(added, (X, Y, Z)))
-    return X, Y, Z
+    log-depth: up to `kern.SEG_SCAN_SMALL_MAX` points all rounds in one K2
+    launch (`seg_scan_small`), above one K2 point add a round."""
+    if seg.shape[-1] <= kern.SEG_SCAN_SMALL_MAX:
+        return kern.seg_scan_small(points, seg.to(torch.int32))
+    return kern.hs_rounds(points, seg, C.point_add)
 
 
 def _hs_total(points: C.Point) -> C.Point:
@@ -162,10 +156,17 @@ def _hs_total(points: C.Point) -> C.Point:
     return tuple(v[..., -1:] for v in _hs_segmented_scan(points, seg))
 
 
+def _carry_index(take: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """The carry of each lane for `kern.point_add_carry`: the scanned tail
+    of the chunk before its own (`chunk`, flat chunk indices) where `take`,
+    else -1 (nothing added).  int32, flat."""
+    return torch.where(take, chunk - 1, -1).to(torch.int32).reshape(-1)
+
+
 def _seg_scan_auto(points: C.Point, seg: torch.Tensor,
                    K: int = CHUNK) -> C.Point:
     """Inclusive segmented prefix sum (seg sorted): K7 over chunks of K,
-    recursion over the chunk tails, one K2 add of the carries."""
+    recursion over the chunk tails, one K2 carry add."""
     n = seg.shape[-1]
     if n % K != 0 or n // K < 2:
         return _hs_segmented_scan(points, seg)
@@ -178,11 +179,10 @@ def _seg_scan_auto(points: C.Point, seg: torch.Tensor,
     # segment continues into chunk m; it applies to chunk m's first segment
     match = torch.zeros(M, dtype=torch.bool, device=seg.device)
     match[1:] = last_seg[:-1] == first_seg[1:]
-    elem = (seg.reshape(M, K) == first_seg[:, None]).reshape(n)
-    cin = tuple(kern.select_lanes(elem, torch.repeat_interleave(
-        kern.select_lanes(match, _shift1(v), torch.zeros_like(v)), K, dim=-1),
-        torch.zeros_like(x)) for v, x in zip(car, scanned))
-    return C.point_add(scanned, cin)
+    elem = seg.reshape(M, K) == first_seg[:, None]
+    chunk = torch.arange(M, dtype=torch.int32, device=seg.device)[:, None]
+    idx = _carry_index(match[:, None] & elem, chunk)
+    return kern.point_add_carry(scanned, car, idx)
 
 
 def _total_auto(points: C.Point, K: int = CHUNK) -> C.Point:
@@ -244,27 +244,26 @@ def _bucket_sums(points: C.Point, digits: torch.Tensor,
 
 def _madd_chunk_scan(pts, d_sorted: torch.Tensor, K: int):
     """Phase 1 of `_bucket_sums_chunked`: K steps over the N/K chunk lanes,
-    each one batched add of the current point (K3 + K2 fix-up for affine
-    points, K2 for Jacobian ones), restarting at segment starts.  Returns
-    the flat in-chunk scan."""
+    restarting at segment starts; affine points in one K3 chain launch
+    (`point_madd_chain`, every step kept), Jacobian ones one K2 add a
+    step.  Returns the flat in-chunk scan."""
     affine = len(pts) == 2
+    if affine:
+        return kern.point_madd_chain(pts, K, seg=d_sorted.to(torch.int32),
+                                     keep=True)
     n = d_sorted.shape[-1]
     M = n // K
     d2 = d_sorted.reshape(M, K)
     p2 = tuple(x.reshape(x.shape[:-1] + (M, K)) for x in pts)
 
-    def cur_at(t):
-        cur = tuple(x[..., t] for x in p2)
-        return cur, (C.affine_to_jac(cur) if affine else cur)
-
-    acc = cur_at(0)[1]
+    acc = tuple(x[..., 0] for x in p2)
     outs = [acc]
     for t in range(1, K):
-        cur, cur_jac = cur_at(t)
-        added = C.point_madd(acc, cur) if affine else C.point_add(acc, cur)
+        cur = tuple(x[..., t] for x in p2)
+        added = C.point_add(acc, cur)
         same = d2[:, t] == d2[:, t - 1]
         acc = tuple(kern.select_lanes(same, a, c)
-                    for a, c in zip(added, cur_jac))
+                    for a, c in zip(added, cur))
         outs.append(acc)
     return tuple(torch.stack([o[i] for o in outs], dim=-1).reshape(
         outs[0][i].shape[:-1] + (n,)) for i in range(3))
@@ -304,12 +303,16 @@ def _carry_scatter(scan_flat: C.Point, d_sorted: torch.Tensor,
     continues = torch.zeros(M, dtype=torch.bool, device=dev)
     continues[:-1] = ((last_seg == first_seg)[:-1]
                       & (first_seg[1:] == first_seg[:-1]))
+    # bucket first_seg[m] takes chunk m's carry; no two such chunks share
+    # a bucket (a bucket spanning chunks continues in all but its last)
     tgt = torch.where(match & ~continues, first_seg.to(torch.int64),
                       n_buckets)
-    carry = C.infinity(_group(scan_flat), n_buckets + 1, dev)
-    for b, v in zip(carry, car):
-        b[..., tgt] = kern.select_lanes(match, _shift1(v), torch.zeros_like(v))
-    return C.point_add(buckets, tuple(b[..., :n_buckets] for b in carry))
+    chunk_of = torch.zeros(n_buckets + 1, dtype=torch.int32, device=dev)
+    chunk_of[tgt] = torch.arange(M, dtype=torch.int32, device=dev)
+    take = torch.zeros(n_buckets + 1, dtype=torch.bool, device=dev)
+    take[tgt] = True
+    idx = _carry_index(take[:n_buckets], chunk_of[:n_buckets])
+    return kern.point_add_carry(buckets, car, idx)
 
 
 def _bucket_sums_fused(points: C.AffinePoint, digits: torch.Tensor,
@@ -338,12 +341,11 @@ def _chunked_prefix_scan(points: C.Point, K: int) -> C.Point:
     n = points[0].shape[-1]
     M = n // K
     scanned = kern.jac_scan(points, K)
+    dev = points[0].device
     car = _seg_scan_auto(tuple(x[..., K - 1::K] for x in scanned),
-                         torch.zeros(M, dtype=torch.int32,
-                                     device=points[0].device))
-    carry = tuple(torch.repeat_interleave(_shift1(v), K, dim=-1)
-                  for v in car)                        # Z = 0: infinity
-    return C.point_add(scanned, carry)
+                         torch.zeros(M, dtype=torch.int32, device=dev))
+    chunk = torch.arange(n, dtype=torch.int32, device=dev) // K
+    return kern.point_add_carry(scanned, car, _carry_index(chunk > 0, chunk))
 
 
 def _set_infinity(points: C.Point, col: int) -> C.Point:
@@ -456,9 +458,11 @@ def _window_v2(prec_rows: torch.Tensor, dig_signed: torch.Tensor,
 def _assemble_buckets_batched(outs, n_windows: int, nb: int, M: int,
                               group: str) -> C.Point:
     """Cross-window completion of _window_v2: one segmented carry scan
-    over all windows' chunk partials, gathered carries, one K2 add ->
-    (coord.., W*nb) buckets."""
-    tails_m, tail, mb, needs_carry, valid, last_seg, first_seg = outs[:7]
+    over all windows' chunk partials, then one K2 carry add -> (coord..,
+    W*nb) buckets.  Bucket d of window w takes the carry into its tail's
+    chunk where that bucket starts in an earlier chunk; K5 left its tail
+    zero (infinity) where window w has no digit d."""
+    tails_m, tail, mb, needs_carry, _valid, last_seg, first_seg = outs[:7]
     dev = mb.device
     tails_flat = tuple(_to_curve(v, group) for v in tails_m)
     wid = torch.arange(n_windows, dtype=torch.int32, device=dev)[:, None]
@@ -466,19 +470,10 @@ def _assemble_buckets_batched(outs, n_windows: int, nb: int, M: int,
     car = _seg_scan_auto(tails_flat, seg_flat)
     match = torch.zeros((n_windows, M), dtype=torch.bool, device=dev)
     match[:, 1:] = last_seg[:, :-1] == first_seg[:, 1:]
-    match = match.reshape(-1)
-    idx = (wid.to(torch.int64) * M + mb).reshape(-1)
-    nc = needs_carry.reshape(-1)
-    carry_b = []
-    for v in car:
-        cin = kern.select_lanes(match, _shift1(v), torch.zeros_like(v))[..., idx]
-        carry_b.append(kern.select_lanes(nc, cin, torch.zeros_like(cin)))
-    vf = valid.reshape(-1)
-    tail_flat = []
-    for v in tail:
-        t = _to_curve(v, group)
-        tail_flat.append(kern.select_lanes(vf, t, torch.zeros_like(t)))
-    return C.point_add(tuple(tail_flat), tuple(carry_b))
+    chunk = (wid * M + mb).to(torch.int32)              # (W, nb) flat chunk
+    take = needs_carry & match.reshape(-1)[chunk.to(torch.int64)]
+    tail_c = tuple(_to_curve(v, group) for v in tail)
+    return kern.point_add_carry(tail_c, car, _carry_index(take, chunk))
 
 
 def _wreduce_batched(v: C.Point, nblk: int, per: int,
@@ -722,14 +717,11 @@ def fixed_base_mul(scalars_std: torch.Tensor, group: str = "g1", c: int = 8,
 
 
 def _fixed_base_madd(tX, tY, digits: torch.Tensor, c: int) -> C.Point:
-    """The window loop: acc = T[0][d_0], then acc += T[w][d_w] (K3) for
-    w = 1..W-1; zero digits fetch the (0, 0) entry (infinity)."""
-    idx = digits.to(torch.int64) + (torch.arange(
-        digits.shape[0], dtype=torch.int64, device=digits.device) << c)[:, None]
-    acc = C.affine_to_jac((tX[..., idx[0]], tY[..., idx[0]]))
-    for w in range(1, digits.shape[0]):
-        acc = C.point_madd(acc, (tX[..., idx[w]], tY[..., idx[w]]))
-    return acc
+    """The window loop as one K3 chain launch: acc = T[0][d_0], then acc +=
+    T[w][d_w] for w = 1..W-1, the kernel gathering T[w 2^c + d_w] itself;
+    zero digits fetch the (0, 0) entry (infinity)."""
+    return kern.point_madd_chain((tX, tY), digits.shape[0],
+                                 digits.to(torch.int32).contiguous(), c)
 
 
 def _fixed_base_rows(tX, tY, digits: torch.Tensor, c: int,

@@ -1,5 +1,5 @@
-"""K4, K6, K7, the NTT and the MSM stages of K2's doubling and K5, timed
-at the provers' shapes.
+"""K4, K6, K7, K2's add, K3, the NTT and the MSM stages of K2's doubling
+and K5, timed at the provers' shapes.
 
     python -m zukelang_tpu_torch.profile_kernels [--sweep]
 
@@ -18,19 +18,27 @@ allocates; and K5 on the bucket phase's own inputs beside the same call
 with its rows in order (`row_orders`), which tells the gather's cost from
 the arithmetic's.  K7 at the first two levels of each group's carry
 scan in a Groth16 2^16 and a Pinocchio ZK 2^14 prove (K = 32, sorted
-segments); the four NTT forms on one 2^16 and one 2^20 vector, and the
-witness reduction of `make_synthetic_r1cs(16, seed=1)`, each with its
-device time and launches.  Inputs are made on the card
-from a seed: uniform digits, points with random coordinates below p,
-field elements below r.  Times: `timing.time_ms`, minimum of `--reps`
-after a warm-up, and the device time of one call (`torch.profiler`);
-with `--sweep`, K6 and K7 at every group width.  Also the registers and
-stack of the sources' kernels (`build.ptxas_entries`).
+segments); K2's add at the widths of a Groth16 2^16 prove's adds (5 to
+327,760 points), with the Hillis-Steele scan (`msm._hs_segmented_scan`)
+up to 256 points; K3 as the stages that run it (`msm._fixed_base_madd`
+on a keygen's 16-element batch, `msm._madd_chunk_scan` on 2^18 points);
+the four NTT forms on one 2^16 and one 2^20 vector, and the witness
+reduction of `make_synthetic_r1cs(16, seed=1)`, each with its device
+time and launches.  Inputs are made on the card from a seed: uniform
+digits, points with random coordinates below p, field elements below r.
+Times: `timing.time_ms`, minimum of `--reps` after a warm-up, and the
+device time of one call (`torch.profiler`); with `--sweep`, K6 and K7 at
+every group width and K2's add and its small scan at every lane width.
+Also the latency of one dependent Fq product (`kernels.fq_mul_chain`),
+from which the adds', K3's and the window combine's chain bounds, and
+the registers and stack of the sources' kernels (`build.ptxas_entries`).
 It calls only functions whose signatures an earlier tree shares (the
 wrappers' public signatures, `_combine_windows`, `_window_v2`,
-`run_witness_reduction`), so the same file times an earlier tree's
-kernels.  Needs a CUDA device; prints
-one JSON object as its last line.
+`_hs_segmented_scan`, `_fixed_base_madd`, `_madd_chunk_scan`,
+`run_witness_reduction`; the lane sweeps and the product latency only
+where the tree has them), so the same file times an earlier tree's
+kernels.  Needs a CUDA device; prints one JSON object as its last line,
+with the card's name and power limit (`card_line`).
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from . import bench_lib, build
 from .engine import torch_engine as te
 from .ops import kernels as K
 from .ops import msm, ntt
-from .timing import time_ms
+from .timing import card_line, time_ms
 
 # (label, rows, log2 n, nkeys)
 SORT_SHAPES = (
@@ -76,6 +84,21 @@ SCAN_SHAPES = (
     ("pinocchio_zk", "g2", 81920), ("pinocchio_zk", "g2", 2560),
 )
 NTT_LOGS = (16, 20)
+# (group, points) of K2's add a Groth16 2^16 prove makes: the
+# Hillis-Steele tails and window combines (up to 256 points: the small
+# scan, `msm._hs_segmented_scan`), the weighted reduction's adds (160,
+# 80 / 40, 20) and the carry adds (the rest); and a Pinocchio ZK 2^14
+# prove's other scan widths (G1 10, G2 80)
+ADD_WIDTHS = (("g1", 5), ("g1", 10), ("g1", 80), ("g1", 160), ("g1", 5120),
+              ("g1", 163840), ("g1", 327760), ("g2", 20), ("g2", 40),
+              ("g2", 80), ("g2", 1280), ("g2", 40960), ("g2", 81940))
+# K3's chain: a keygen's small fixed-base batch (16 elements, c = 16, 16
+# windows) and the window program's chunked phase 1 (2^18 points, K = 32)
+CHAIN_LANES, CHAIN_C = 16, 16
+# lengths of the two chains of dependent Fq products whose difference
+# times one product (`fq_product_us`)
+FQ_CHAIN_REPS = (1000, 101000)
+PHASE1_LOG = 18
 _FQ_TOP = 0x1a0111ea   # top 32-bit limb of p: smaller top limbs are below p
 
 
@@ -235,6 +258,133 @@ def jac_scans(gen, dev, reps: int, sweep: bool):
     return rows
 
 
+# Dependent Fq products a prove's window combine chains: window 19 of 20
+# doubled 13 x 19 times, 3 products a doubling (point_ops.cu, G1 and G2)
+COMBINE_CHAIN = 13 * 19 * 3
+
+
+def fq_product_us(gen, dev, reps: int) -> dict:
+    """The latency of one bare dependent Fq product on the card
+    (`kernels.fq_mul_chain`, one thread): the difference of chains of
+    FQ_CHAIN_REPS[1] and [0] products over the difference of their
+    lengths, so the launch cancels out.  A G2 formula's Fq products
+    (three an Fq2 product, two a square) are the same product, so one
+    latency serves both groups.  With it the window combine's chain
+    bound (COMBINE_CHAIN products)."""
+    if not hasattr(K, "fq_mul_chain"):
+        return {}
+    a, b = _coord("g1", 1, gen, dev), _coord("g1", 1, gen, dev)
+    lo, hi = (time_ms(lambda: K.fq_mul_chain(a, b, r), dev, reps)[0]
+              for r in FQ_CHAIN_REPS)
+    us = (hi - lo) * 1e3 / (FQ_CHAIN_REPS[1] - FQ_CHAIN_REPS[0])
+    return {"fq_mul_us": us,
+            "combine_chain_bound_ms": _chain_bound_ms(COMBINE_CHAIN, us)}
+
+
+def _by_lanes(group: str, fn, dev, reps: int):
+    """({L: ms}, {L: device ms}) of fn(L) at every lane width of K2's add:
+    `time_ms`, and the device time of one call."""
+    ms, dev_ms = {}, {}
+    for L in K.POINT_LANES[group]:
+        ms[L] = time_ms(lambda: fn(L), dev, reps)[0]
+        dev_ms[L] = _device_ms(lambda: fn(L))
+    return ms, dev_ms
+
+
+def _chain_bound_ms(chain_products: float, us: float) -> float:
+    return chain_products * us / 1e3
+
+
+def point_adds(gen, dev, reps: int, sweep: bool, fq_us: dict = None):
+    """K2's add at `ADD_WIDTHS` on random points (every 17th at infinity):
+    the plain form, and up to 256 points the Hillis-Steele scan
+    (`msm._hs_segmented_scan`) in segments of 20 points, as a prove's
+    window combine sums each MSM's 20 windows; with `sweep`, at
+    every lane width the source builds.  With the product latency fq_us,
+    each row's chain bound: the dependent Fq products of one add at the
+    chosen width (of the scan's rounds and passes) x that latency."""
+    lanes_of = getattr(K, "point_lanes", None)
+    rows = []
+    for group, n in ADD_WIDTHS:
+        P, Q = (tuple(_coord(group, n, gen, dev) for _ in range(3))
+                for _ in range(2))
+        P[2].reshape(-1, n)[:, ::17] = 0
+        row = {"group": group, "points": n,
+               "lanes": lanes_of(group, n) if lanes_of else 1,
+               "add_ms": time_ms(lambda: K.point_add(P, Q), dev, reps)[0],
+               "add_device_ms": _device_ms(lambda: K.point_add(P, Q))}
+        if fq_us and lanes_of:
+            row["add_chain_bound_ms"] = _chain_bound_ms(
+                K.POINT_CHAIN["add"][group][row["lanes"]],
+                fq_us["fq_mul_us"])
+        if sweep and lanes_of:
+            row["add_ms_by_lanes"], row["add_device_ms_by_lanes"] = (
+                _by_lanes(group, lambda L: K.point_add(P, Q, L), dev, reps))
+        if n <= 256:
+            seg = torch.arange(n, dtype=torch.int32, device=dev) // 20
+            fn = lambda: msm._hs_segmented_scan(P, seg)   # noqa: E731
+            row["scan_ms"] = time_ms(fn, dev, reps)[0]
+            row["scan_device_ms"], _g, row["scan_launches"] = (
+                _device_profile(fn))
+            if fq_us and lanes_of:
+                L = K.point_lanes(group, n, "scan")
+                per_block = 32 * K.SEG_SCAN_SMALL_WARPS // L
+                row["scan_lanes"] = L
+                row["scan_chain_bound_ms"] = _chain_bound_ms(
+                    max(1, (n - 1).bit_length()) * -(-n // per_block)
+                    * K.POINT_CHAIN["add"][group][L], fq_us["fq_mul_us"])
+            if sweep and lanes_of:
+                row["scan_ms_by_lanes"], row["scan_device_ms_by_lanes"] = (
+                    _by_lanes(group, lambda L: K.seg_scan_small(P, seg, L),
+                              dev, reps))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def madd_chains(gen, dev, reps: int, fq_us: dict = None):
+    """K3 on its two paths, timed as the stages that call it (the same
+    functions in an earlier tree, where they loop one K3 launch a step):
+    a keygen's small fixed-base batch (`msm._fixed_base_madd`, random
+    table of 16 windows of 2^16 entries, 16 lanes) and the chunked phase
+    1 (`msm._madd_chunk_scan`, 2^18 random affine points, sorted random
+    digits below 8193); with fq_us, the chain bound (steps - 1 mixed adds
+    of the chain's dependent Fq products x the product latency)."""
+    rows = []
+    chain = getattr(K, "point_madd_chain", None)
+    for group in ("g1", "g2"):
+        W = -(-256 // CHAIN_C)
+        T = W << CHAIN_C
+        tX, tY = _coord(group, T, gen, dev), _coord(group, T, gen, dev)
+        dig = torch.randint(0, 1 << CHAIN_C, (W, CHAIN_LANES), generator=gen,
+                            dtype=torch.int32, device=dev)
+        n = 1 << PHASE1_LOG
+        X, Y = _coord(group, n, gen, dev), _coord(group, n, gen, dev)
+        d = torch.sort(torch.randint(0, 8193, (n,), generator=gen,
+                                     device=dev))[0].to(torch.int32)
+        for stage, fn, lanes, kw in (
+                ("fixed_base", lambda: msm._fixed_base_madd(tX, tY, dig,
+                                                            CHAIN_C),
+                 CHAIN_LANES, dict(table=(tX, tY), steps=W, digits=dig,
+                                   c=CHAIN_C)),
+                ("phase1", lambda: msm._madd_chunk_scan((X, Y), d, 32),
+                 n // 32, dict(table=(X, Y), steps=32, seg=d, keep=True))):
+            dev_ms, _g, launches = _device_profile(fn)
+            row = {"group": group, "stage": stage, "lanes": lanes,
+                   "steps": kw["steps"], "ms": time_ms(fn, dev, reps)[0],
+                   "device_ms": dev_ms, "launches": launches}
+            if chain is not None:
+                row["lanes_a_point"] = K.MADD_CHAIN_LANES[group]
+                if fq_us:
+                    row["chain_bound_ms"] = _chain_bound_ms(
+                        (kw["steps"] - 1) * K.POINT_CHAIN["madd"][group],
+                        fq_us["fq_mul_us"])
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del tX, tY, X, Y
+    return rows
+
+
 def ntt_forms(gen, dev, reps: int):
     """The four NTT forms on one vector of each of `NTT_LOGS`, then the
     witness reduction of the Groth16 2^16 prove's circuit."""
@@ -267,10 +417,14 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sweep", action="store_true",
-                    help="time K6 and K7 at every group width g, not only "
-                         "the wrapper's choice")
+                    help="time K6 and K7 at every group width g, and K2's "
+                         "add and its small scan at every lane width, not "
+                         "only the wrapper's choice")
     ap.add_argument("--stages-only", action="store_true",
                     help="only the combine and bucket-phase stages")
+    ap.add_argument("--points-only", action="store_true",
+                    help="only the Fq product latency, K2's add and K3's "
+                         "chain")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -279,9 +433,9 @@ def main(argv=None) -> dict:
     gen.manual_seed(4)
     build.library()
 
+    others = not (args.stages_only or args.points_only)
     sorts = []
-    for label, rows, logn, nkeys in (() if args.stages_only
-                                     else SORT_SHAPES):
+    for label, rows, logn, nkeys in (SORT_SHAPES if others else ()):
         keys = torch.randint(0, nkeys, (rows, 1 << logn), generator=gen,
                              dtype=torch.int32, device=dev)
         ms, (sk, order) = time_ms(lambda: K.digit_sort(keys, nkeys), dev,
@@ -300,7 +454,7 @@ def main(argv=None) -> dict:
         del keys, sk, order, want, worder
 
     wsums = []
-    for prover, group, levels in (() if args.stages_only else WSUM_LEVELS):
+    for prover, group, levels in (WSUM_LEVELS if others else ()):
         for level, chunks in enumerate(levels, 1):
             P = tuple(_coord(group, chunks * 32, gen, dev) for _ in range(3))
             ms, _ = time_ms(lambda: K.weighted_chunk_sums(P, 32), dev,
@@ -315,16 +469,24 @@ def main(argv=None) -> dict:
             wsums.append(row)
             print(json.dumps(row), flush=True)
 
-    scans = [] if args.stages_only else jac_scans(gen, dev, args.reps,
-                                                  args.sweep)
-    forms = [] if args.stages_only else ntt_forms(gen, dev, args.reps)
-    stages = msm_stages(gen, dev, args.reps)
-    res = {"card": torch.cuda.get_device_name(0), "digit_sort": sorts,
-           "weighted_chunk_sums": wsums, "jac_scan": scans, "ntt": forms,
+    scans = jac_scans(gen, dev, args.reps, args.sweep) if others else []
+    points = others or args.points_only
+    fq_us = fq_product_us(gen, dev, args.reps) if points else {}
+    adds = (point_adds(gen, dev, args.reps, args.sweep, fq_us) if points
+            else [])
+    chains = madd_chains(gen, dev, args.reps, fq_us) if points else []
+    forms = ntt_forms(gen, dev, args.reps) if others else []
+    stages = [] if args.points_only else msm_stages(gen, dev, args.reps)
+    res = {"card": torch.cuda.get_device_name(0), "card_line": card_line(),
+           "digit_sort": sorts,
+           "weighted_chunk_sums": wsums, "jac_scan": scans,
+           "fq_product_us": fq_us, "point_add": adds,
+           "point_madd_chain": chains, "ntt": forms,
            "msm_stages": stages,
            "ptxas": {src: build.ptxas_entries(src)
                      for src in ("digit_sort.cu", "weighted_sums.cu",
-                                 "point_ops.cu", "bucket_scan.cu",
+                                 "point_ops.cu", "point_add.cu",
+                                 "point_madd.cu", "bucket_scan.cu",
                                  "jac_scan.cu", "ntt.cu")
                      if src in build.report()}}
     print(json.dumps(res))

@@ -20,7 +20,13 @@ the canonical 2^16 domain), runs keygen and two warm-up proves, then:
     copy and fill, largest first;
   * one witness reduction alone under `torch.profiler`: its kernel
     launches, its device-side events (kernels, copies and fills: every
-    launch, a torch op's included) and their device time.
+    launch, a torch op's included) and their device time;
+  * from the profiled prove, K2's add (`k_point_add`, `k_seg_scan_small`)
+    and the torch glue (every device event that is not one of the port's
+    kernels, `zk::k_*`): device ms and events;
+  * one more keygen (its fixed-base tables built) under `torch.profiler`:
+    its time and K3's device ms and launches (`k_point_madd*`).
+Each result carries the card's name and power limit.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -39,6 +45,7 @@ from .ops import msm as msm_mod
 from .protocols import groth16_device as gd
 from .protocols import pinocchio_device as pd
 from .rng import Gen
+from .timing import card_line
 
 
 def _sync():
@@ -110,6 +117,21 @@ def profiled(fn):
     return seconds, device, launches
 
 
+def _share(device, match) -> dict:
+    """{"device_ms", "events"} of the device events whose name `match`es."""
+    rows = [(ms, n) for k, ms, n in device if match(k)]
+    return {"device_ms": sum(ms for ms, _n in rows),
+            "events": sum(n for _ms, n in rows)}
+
+
+def _is_port_kernel(name: str) -> bool:
+    return "zk::k_" in name
+
+
+def _is_k2_add(name: str) -> bool:
+    return "k_point_add" in name or "k_seg_scan_small" in name
+
+
 def witness_reduction_launches(fc, witness) -> dict:
     """Launches of one witness reduction (warm: its tables and the
     circuit's device copies made by an earlier call)."""
@@ -142,12 +164,17 @@ def main(argv=None) -> dict:
     fc, wm = inst.fc, inst.pack_witness(dev)
     mids, ios = list(inst.mids_cols), list(inst.ios_cols)
     if args.protocol == "groth16":
-        key, _ = gd.keygen_device(fc, mids, ios, Gen(b"bench-keygen"), dev)
+        def keygen():
+            return gd.keygen_device(fc, mids, ios, Gen(b"bench-keygen"), dev)
+        key, _ = keygen()
 
         def prove(i):
             return gd.prove_device(key, fc, wm, Gen(b"profile-%d" % i))
     else:
-        key, _ = pd.keygen_device(fc, mids, ios, Gen(b"bench-pin-keygen"), dev)
+        def keygen():
+            return pd.keygen_device(fc, mids, ios, Gen(b"bench-pin-keygen"),
+                                    dev)
+        key, _ = keygen()
 
         def prove(i):
             return pd.prove_device(key, fc, wm, Gen(b"profile-%d" % i),
@@ -162,6 +189,8 @@ def main(argv=None) -> dict:
         prove(i)
         whole.append(time.perf_counter() - t0)
 
+    keygen_s, keygen_device, _l = profiled(keygen)
+    k3 = _share(keygen_device, lambda k: "k_point_madd" in k)
     wr = witness_reduction_launches(fc, wm)
     stages = {"witness_reduction_s": [], "msm_s": [], "host_s": []}
     mark = _instrument(stages)
@@ -197,7 +226,12 @@ def main(argv=None) -> dict:
         "device_events": sum(n for _k, _ms, n in device),
         "device_ms_by_kernel": [[k, round(ms, 4), n] for k, ms, n in device],
         "witness_reduction": wr,
+        "k2_add": _share(device, _is_k2_add),
+        "glue": _share(device, lambda k: not _is_port_kernel(k)),
+        "keygen_profiled_s": keygen_s,
+        "keygen_k3": {"device_ms": k3["device_ms"], "launches": k3["events"]},
         "card": torch.cuda.get_device_name(0),
+        "card_line": card_line(),
     }
     print(json.dumps(res))
     return res

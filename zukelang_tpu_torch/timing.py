@@ -1,5 +1,6 @@
 """One timing helper for the port's scripts (`chip_smoke.py`,
-`profile_msm`, `probe_looped`).
+`profile_msm`, `probe_looped`, `profile_kernels`, `profile_prove`), and
+the card line every measurement is reported beside.
 
 `time_ms(fn, dev, reps, stat)` calls `fn` once to warm up, then `reps`
 times, each call between its own pair of CUDA events on the card (the
@@ -11,9 +12,19 @@ its first launch to its last, its host waits included.
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, dev: torch.device, reps: int = 5, stat: str = "min"):
