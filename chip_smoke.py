@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
      a small row table with and without bucket tails, a forced collision
      flagged;
      the NTT kernel's four forms at 2^1, 2^2, 2^10, 2^11, 2^12 and 2^16
-     (a batch of 3) and 2^20 (one vector);
+     (a batch of 3) and 2^20 (one vector); K8 at 2^16 (G1, G2) at g = 1
+     and at the wrapper's g, with a forced collision in every 11th chunk
+     flagged at both;
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
@@ -48,14 +50,17 @@ Phases (any failure raises and the script exits non-zero):
      `profile_msm` holds its K3 phase 1 and its log-depth carry scan
      against the K8 and K7 route; then every kernel the window program
      launches is checked against its plain version on the path's own
-     inputs: K4 on the 2^18 window (beside the stable `torch.sort`), K8,
+     inputs: K4 on the 2^18 window (beside the stable `torch.sort`), K8
+     at g = 1 and at the wrapper's g,
      K3 at one step of the 8192 chunk lanes and K3's chain over the whole
      chunked phase 1, K7 over the 8192 chunk tails
      (K = 32, segmented) and over the 8256 padded buckets (K = 64), and K2
      at those two widths;
   7. the looped-product probe at 2^20 Fq (`probe_looped`): its output
      equal to K1's, both timed, the nvcc and ptxas figures of both
-     sources; then the looped kernel against its plain version there.
+     sources and their kernels' SASS instructions (the looped kernel's
+     fewer than K1's, or it raises); then the looped kernel against its
+     plain version there.
 Phases 4 and 5 also print the launches of one prove.
 Each path of phases 4 to 7 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
@@ -368,13 +373,37 @@ def _k5_work(group, rows, idx, seg, K):
 
 def _k8_work(points, seg, K, group):
     """work(got) of a K8 call: 11 coordinate products per continuing step
-    with both operands finite."""
+    with both operands finite (the sequential scan's, at any g)."""
     inf = (_zero_coord(points[0]) & _zero_coord(points[1])).reshape(-1, K).t()
     sk = seg.reshape(-1, K).t()
     restart = sk != sk.roll(1, 0)
     restart[0] = True
     madds = _scan_adds(inf, restart)
     return lambda got: (_nbytes(points, seg, got), _fq_ops(group, 11 * madds))
+
+
+def k8_at_widths(what: str, points, seg, Kc: int, group: str,
+                 plain_reps: int, want_flag=None):
+    """K8 at g = 1 (the sequential scan) and then at the wrapper's g
+    (`bscan_group`), each held against its plain version at that g (and
+    its flags against want_flag); logs the ratio of the two times."""
+    from zukelang_tpu_torch.ops import kernels as K
+    n = seg.shape[-1]
+    chosen = K.bscan_group(n // Kc, Kc, group)
+    for g in sorted({1, chosen}):
+        log(f"K8 bucket_scan {what} ({group}, K = {Kc}, g = {g})")
+        record("bucket_scan",
+               lambda: K.bucket_scan(points, seg, Kc, group, g),
+               lambda: K.bucket_scan_plain(points, seg, Kc, group, g),
+               _k8_work(points, seg, Kc, group), plain_reps=plain_reps)
+        flag = K.bucket_scan(points, seg, Kc, group, g)[1]
+        if want_flag is not None and not bool((flag == want_flag).all()):
+            raise AssertionError(f"bucket_scan g = {g}: the flags are not "
+                                 "the constructed collision lanes")
+    rows = RESULTS["bucket_scan"]
+    if chosen != 1:
+        log(f"  K8 at g = {chosen} / g = 1: {rows[-1]['ms']:.4f} / "
+            f"{rows[-2]['ms']:.4f} ms = {rows[-1]['ms'] / rows[-2]['ms']:.3f}")
 
 
 # per NTT form: (products a point besides the butterflies, tables read)
@@ -620,15 +649,7 @@ def kernel_checks(dev, rng: random.Random):
         steps[dup] = 1
         steps[dup + 1] = 0
         seg8 = torch.cumsum(steps, 0).to(torch.int32)
-        pts8 = (X8, Y8)
-        log(f"K8 bucket_scan {group} (2^16, K = 32)")
-        record("bucket_scan", lambda: K.bucket_scan(pts8, seg8, K8, group),
-               lambda: K.bucket_scan_plain(pts8, seg8, K8, group),
-               _k8_work(pts8, seg8, K8, group), plain_reps=1)
-        _got, flag = K.bucket_scan(pts8, seg8, K8, group)
-        if not torch.equal(flag, want_flag):
-            raise AssertionError("bucket_scan: the flags are not the "
-                                 "constructed collision lanes")
+        k8_at_widths("at 2^16", (X8, Y8), seg8, K8, group, 1, want_flag)
     return RESULTS
 
 
@@ -1041,10 +1062,7 @@ def path_kernel_checks(st, logn: int, c: int):
            library=lambda: torch.sort(absd, dim=-1, stable=True))
 
     p8, s8 = st["pts_sorted"], st["d_sorted"]
-    log(f"K8 bucket_scan at the path's inputs (G1, 2^{logn}, K = {Kc})")
-    record("bucket_scan", lambda: K.bucket_scan(p8, s8, Kc, "g1"),
-           lambda: K.bucket_scan_plain(p8, s8, Kc, "g1"),
-           _k8_work(p8, s8, Kc, "g1"), plain_reps=1)
+    k8_at_widths(f"at the path's inputs (2^{logn})", p8, s8, Kc, "g1", 0)
 
     # step t of the chunked phase 1: the scan after step t-1 plus the
     # sorted point t of every chunk lane

@@ -255,11 +255,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.mont_mul(a, a[:, :32], FR)
 
 
+@pytest.mark.parametrize("g", [None, 1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_k8_bucket_scan_kernel_equals_plain(dev, group):
-    """K8 on the flat layout: random segments, affine infinity, and a
-    repeated point right after a segment start in every 5th lane, which
-    must raise exactly those lanes' flags."""
+def test_k8_bucket_scan_kernel_equals_plain(dev, group, g):
+    """K8 on the flat layout at g lanes a chunk (None: `bscan_group`'s):
+    random segments, affine infinity, and a repeated point right after a
+    segment start in every 5th chunk, which must raise exactly those
+    chunks' flags; 150 chunks, so a block holds idle groups at every g."""
     Kc, M = 32, 150
     n = Kc * M
     X, Y = _coord(group, n, 41, dev), _coord(group, n, 43, dev)
@@ -273,9 +275,9 @@ def test_k8_bucket_scan_kernel_equals_plain(dev, group):
     steps[dup], steps[dup + 1] = 1, 0
     seg = torch.cumsum(steps, 0).to(torch.int32)
     before = K.LAUNCHES["bucket_scan"]
-    got, gflag = K.bucket_scan((X, Y), seg, Kc, group)
+    got, gflag = K.bucket_scan((X, Y), seg, Kc, group, g)
     assert K.LAUNCHES["bucket_scan"] == before + 1
-    want, wflag = K.bucket_scan_plain((X, Y), seg, Kc, group)
+    want, wflag = K.bucket_scan_plain((X, Y), seg, Kc, group, g)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     want_flag = torch.zeros(M, dtype=torch.bool, device=dev)
     want_flag[::5] = True
@@ -284,12 +286,15 @@ def test_k8_bucket_scan_kernel_equals_plain(dev, group):
 
 @pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
 def test_mont_mul_looped_equals_k1_and_plain(dev, spec):
+    """3000 elements, not a multiple of the block's 128, so the last
+    block is ragged."""
     a, b = _field(spec, 3000, 51, dev), _field(spec, 3000, 53, dev)
+    want = K.mont_mul_plain(a, b, spec)
     before = K.LAUNCHES["mont_mul_looped"]
     got = K.mont_mul_looped(a, b, spec)
     assert K.LAUNCHES["mont_mul_looped"] == before + 1
     assert torch.equal(got, K.mont_mul(a, b, spec))
-    assert torch.equal(got, K.mont_mul_plain(a, b, spec))
+    assert torch.equal(got, want)
 
 
 def test_new_wrappers_refuse_bad_shapes(dev):

@@ -6,7 +6,8 @@ is built at first use into `build/kernels/` beside the package (listed in
 .gitignore), keyed by a hash of the sources, and loaded once per process.
 Beside the library it writes a report of each source's nvcc seconds and
 `-Xptxas -v` output (`report()`, `ptxas_entries()`), kept for later
-processes that load the library without building it.  Every C entry
+processes that load the library without building it; `sass_counts()`
+counts each kernel's SASS instructions in the built library.  Every C entry
 point takes raw device pointers and the CUDA stream as `c_void_p`,
 launches on that stream and returns `cudaGetLastError()`; `check` raises
 when it is not 0.
@@ -184,6 +185,36 @@ def ptxas_entries(source: str) -> Dict[str, dict]:
             entries[last]["ptxas_ms"] = float(m.group(1))
             last = None
     return entries
+
+
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+([^;]+);")
+
+
+def sass_counts() -> Dict[str, int]:
+    """{mangled function name: SASS instructions} of the loaded library,
+    NOPs left out, from `cuobjdump -sass` (beside nvcc).  A kernel's count
+    leaves out the device functions it calls out of line, which cuobjdump
+    lists as functions of their own."""
+    library()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    lib = os.path.join(BUILD_DIR, f"libzk_kernels_{_digest()}.so")
+    res = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError("cuobjdump -sass failed:\n" + res.stderr[-4000:])
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+            continue
+        m = _INSTRUCTION.match(line)
+        if m and name is not None and not m.group(1).strip().startswith(
+                "NOP"):
+            counts[name] += 1
+    return counts
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

@@ -36,6 +36,18 @@ __device__ __forceinline__ void jac_store(uint32_t* x, uint32_t* y,
   G::store(z + col, stride, p.Z);
 }
 
+// Per group of g lanes, lane i gets lane i - d's point (its own where
+// i < d).  Every lane of the warp must call it; out may alias p.
+template <class G>
+__device__ __forceinline__ void jac_shfl_up(Jac<G>& out, const Jac<G>& p,
+                                            int d, int g) {
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(&p);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Jac<G>) / 4); ++k)
+    dst[k] = __shfl_up_sync(0xffffffffu, src[k], d, g);
+}
+
 template <class G>
 __device__ __noinline__ void jac_double(Jac<G>& out, const Jac<G>& p) {
   using E = typename G::E;

@@ -203,8 +203,8 @@ struct G1Field {
 };
 
 // Fq2 = Fq[u]/(u^2 + 1); Karatsuba product as _fq2_mul_body (pallas :378).
-static __device__ __noinline__ void fq2_mul_call(Fq2E& r, const Fq2E& a,
-                                                 const Fq2E& b) {
+static __device__ __forceinline__ void fq2_mul(Fq2E& r, const Fq2E& a,
+                                               const Fq2E& b) {
   uint32_t v0[12], v1[12], sa[12], sb[12], t[12];
   fp_mul<Fq>(v0, a.c0, b.c0);
   fp_mul<Fq>(v1, a.c1, b.c1);
@@ -214,6 +214,11 @@ static __device__ __noinline__ void fq2_mul_call(Fq2E& r, const Fq2E& a,
   fp_sub<Fq>(r.c0, v0, v1);
   fp_sub<Fq>(t, t, v0);
   fp_sub<Fq>(r.c1, t, v1);
+}
+
+static __device__ __noinline__ void fq2_mul_call(Fq2E& r, const Fq2E& a,
+                                                 const Fq2E& b) {
+  fq2_mul(r, a, b);
 }
 
 struct G2Field {

@@ -32,16 +32,6 @@ namespace zk {
 constexpr int kScanThreads = 128;
 
 template <class G>
-__device__ __forceinline__ void jac_shfl_up(Jac<G>& out, const Jac<G>& p,
-                                            int d, int g) {
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(&p);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int k = 0; k < (int)(sizeof(Jac<G>) / 4); ++k)
-    dst[k] = __shfl_up_sync(0xffffffffu, src[k], d, g);
-}
-
-template <class G>
 __global__ void __launch_bounds__(kScanThreads)
 k_jac_scan(const uint32_t* x, const uint32_t* y, const uint32_t* z,
            const int32_t* seg, uint32_t* ox, uint32_t* oy, uint32_t* oz,

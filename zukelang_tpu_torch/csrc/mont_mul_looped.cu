@@ -2,56 +2,201 @@
 // canonical, for Fr and Fq.  Replaces _mont_mul_kernel_looped
 // (scripts/probe_looped_kernel.py:29, call _looped_call :75), a probe of
 // compile time against body size: on the TPU the loop cut the Mosaic body
-// about 24-fold.  Here the loop over b's limbs is `#pragma unroll 1`, the
-// two inner loops over a's limbs and p's limbs are unrolled, so the
-// accumulator t stays in registers (its indices are constants inside the
-// inner loops) and b's limb k is read from device memory at step k, as
-// the Pallas kernel reads a_ref[pl.ds(i, 1)].  The arithmetic is
-// fp_mul's (field.cuh), so the outputs equal K1's bit for bit.  Kept in
-// its own source so that the build reports its nvcc time and ptxas
-// registers apart from mont_mul.cu.  Bound: the same integer products as
-// K1 plus the loop's branch and address arithmetic.
+// about 24-fold.  The loop over b's limbs stays `#pragma unroll 1`, so
+// the body is one CIOS step (its SASS count, against K1's unrolled
+// product: `build.sass_counts`).
+// Bound: at 2^20 Fq the bytes (three (12, n) arrays, 0.045 ms on an
+// H100) and, close behind, the instruction throughput of the limb
+// products (576 integer multiply-adds a product, two a 32 x 32 -> 64
+// limb product); so the kernel has to stream and compute well at once.
+// The first form lost on both counts: it loaded b's limb k from device
+// memory at step k, behind the previous step's arithmetic (nothing
+// prefetches across a rolled loop), and did each limb product in 64-bit
+// C arithmetic.  Here:
+//   * a's and b's limbs are loaded before the loop as coalesced rows of
+//     the (nl, n) layout, so no step waits on device memory;
+//   * each row of a CIOS step is one PTX carry chain (mad.lo.cc /
+//     madc.hi.cc / addc: t += a b_k, then t = (t + m p) / 2^32 written
+//     one word down in place, so t needs no moves; b's limbs move down
+//     one register a step, as the loop counter cannot index registers);
+//   * one element a thread, 128 threads a block: a sweep of 1, 2 or 4
+//     elements a thread by 64-512 threads a block found no shape faster
+//     than this one beyond noise (PERF.md), so the source builds one
+//     kernel a field and its nvcc time is the one body's.
+// The arithmetic is fp_mul's CIOS (field.cuh), the same m digits, so the
+// outputs equal K1's bit for bit.  Kept in its own source so that the
+// build reports its nvcc time and ptxas registers apart from mont_mul.cu.
+// The carry chains stay here: ptxas lowers each of their limb products to
+// four instructions (IMAD, IMAD.HI, two IADD3.X), fp_mul's C form to
+// about 3.5 (IMAD.WIDE.U32 and its adds), so field.cuh keeps the latter.
 #include "field.cuh"
 
 namespace zk {
 
+// One CIOS step on t (N + 2 words): t += a * bk; then, with m = t[0] *
+// NPRIME, t = (t + m p) / 2^32 (N + 1 words, t[N + 1] dead).  p's limbs
+// come in registers, loaded once before the loop.
 template <class F>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void cios_step(uint32_t (&t)[F::NL + 2],
+                                          const uint32_t (&a)[F::NL],
+                                          uint32_t bk,
+                                          const uint32_t (&p)[F::NL]) {
+  t[F::NL + 1] = 0;                      // takes the first chain's carry
+  if constexpr (F::NL == 12) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %14, %26, %0;\n\t"
+        "madc.lo.cc.u32 %1, %15, %26, %1;\n\t"
+        "madc.lo.cc.u32 %2, %16, %26, %2;\n\t"
+        "madc.lo.cc.u32 %3, %17, %26, %3;\n\t"
+        "madc.lo.cc.u32 %4, %18, %26, %4;\n\t"
+        "madc.lo.cc.u32 %5, %19, %26, %5;\n\t"
+        "madc.lo.cc.u32 %6, %20, %26, %6;\n\t"
+        "madc.lo.cc.u32 %7, %21, %26, %7;\n\t"
+        "madc.lo.cc.u32 %8, %22, %26, %8;\n\t"
+        "madc.lo.cc.u32 %9, %23, %26, %9;\n\t"
+        "madc.lo.cc.u32 %10, %24, %26, %10;\n\t"
+        "madc.lo.cc.u32 %11, %25, %26, %11;\n\t"
+        "addc.cc.u32 %12, %12, 0;\n\t"
+        "addc.u32 %13, %13, 0;\n\t"
+        "mad.hi.cc.u32 %1, %14, %26, %1;\n\t"
+        "madc.hi.cc.u32 %2, %15, %26, %2;\n\t"
+        "madc.hi.cc.u32 %3, %16, %26, %3;\n\t"
+        "madc.hi.cc.u32 %4, %17, %26, %4;\n\t"
+        "madc.hi.cc.u32 %5, %18, %26, %5;\n\t"
+        "madc.hi.cc.u32 %6, %19, %26, %6;\n\t"
+        "madc.hi.cc.u32 %7, %20, %26, %7;\n\t"
+        "madc.hi.cc.u32 %8, %21, %26, %8;\n\t"
+        "madc.hi.cc.u32 %9, %22, %26, %9;\n\t"
+        "madc.hi.cc.u32 %10, %23, %26, %10;\n\t"
+        "madc.hi.cc.u32 %11, %24, %26, %11;\n\t"
+        "madc.hi.cc.u32 %12, %25, %26, %12;\n\t"
+        "addc.u32 %13, %13, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]),
+          "r"(bk));
+  } else {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(a[6]), "r"(a[7]), "r"(bk));
+  }
+  const uint32_t m = t[0] * F::NPRIME;
+  if constexpr (F::NL == 12) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %14, %15, %0;\n\t"
+        "madc.lo.cc.u32 %0, %14, %16, %1;\n\t"
+        "madc.lo.cc.u32 %1, %14, %17, %2;\n\t"
+        "madc.lo.cc.u32 %2, %14, %18, %3;\n\t"
+        "madc.lo.cc.u32 %3, %14, %19, %4;\n\t"
+        "madc.lo.cc.u32 %4, %14, %20, %5;\n\t"
+        "madc.lo.cc.u32 %5, %14, %21, %6;\n\t"
+        "madc.lo.cc.u32 %6, %14, %22, %7;\n\t"
+        "madc.lo.cc.u32 %7, %14, %23, %8;\n\t"
+        "madc.lo.cc.u32 %8, %14, %24, %9;\n\t"
+        "madc.lo.cc.u32 %9, %14, %25, %10;\n\t"
+        "madc.lo.cc.u32 %10, %14, %26, %11;\n\t"
+        "addc.cc.u32 %11, %12, 0;\n\t"
+        "addc.u32 %12, %13, 0;\n\t"
+        "mad.hi.cc.u32 %0, %14, %15, %0;\n\t"
+        "madc.hi.cc.u32 %1, %14, %16, %1;\n\t"
+        "madc.hi.cc.u32 %2, %14, %17, %2;\n\t"
+        "madc.hi.cc.u32 %3, %14, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %14, %19, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %20, %5;\n\t"
+        "madc.hi.cc.u32 %6, %14, %21, %6;\n\t"
+        "madc.hi.cc.u32 %7, %14, %22, %7;\n\t"
+        "madc.hi.cc.u32 %8, %14, %23, %8;\n\t"
+        "madc.hi.cc.u32 %9, %14, %24, %9;\n\t"
+        "madc.hi.cc.u32 %10, %14, %25, %10;\n\t"
+        "madc.hi.cc.u32 %11, %14, %26, %11;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]),
+          "r"(p[5]), "r"(p[6]), "r"(p[7]), "r"(p[8]), "r"(p[9]), "r"(p[10]),
+          "r"(p[11]));
+  } else {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %10, %11, %0;\n\t"
+        "madc.lo.cc.u32 %0, %10, %12, %1;\n\t"
+        "madc.lo.cc.u32 %1, %10, %13, %2;\n\t"
+        "madc.lo.cc.u32 %2, %10, %14, %3;\n\t"
+        "madc.lo.cc.u32 %3, %10, %15, %4;\n\t"
+        "madc.lo.cc.u32 %4, %10, %16, %5;\n\t"
+        "madc.lo.cc.u32 %5, %10, %17, %6;\n\t"
+        "madc.lo.cc.u32 %6, %10, %18, %7;\n\t"
+        "addc.cc.u32 %7, %8, 0;\n\t"
+        "addc.u32 %8, %9, 0;\n\t"
+        "mad.hi.cc.u32 %0, %10, %11, %0;\n\t"
+        "madc.hi.cc.u32 %1, %10, %12, %1;\n\t"
+        "madc.hi.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %14, %3;\n\t"
+        "madc.hi.cc.u32 %4, %10, %15, %4;\n\t"
+        "madc.hi.cc.u32 %5, %10, %16, %5;\n\t"
+        "madc.hi.cc.u32 %6, %10, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %10, %18, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]),
+          "r"(p[5]), "r"(p[6]), "r"(p[7]));
+  }
+}
+
+// Thread x of block b takes element b T + x, its limbs read and written
+// as rows of the (nl, n) layout (coalesced across the warp).
+constexpr int LOOPED_T = 128;
+
+template <class F>
+__global__ void __launch_bounds__(LOOPED_T)
 k_mont_mul_looped(const uint32_t* __restrict__ a,
                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
                   int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   constexpr int N = F::NL;
-  uint32_t x[N], t[N + 2];
+  const int64_t i = (int64_t)blockIdx.x * LOOPED_T + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[N], y[N], t[N + 2], p[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
+    p[j] = F::p(j);
     x[j] = a[j * n + i];
-    t[j] = 0;
+    y[j] = b[j * n + i];
   }
-  t[N] = t[N + 1] = 0;
+#pragma unroll
+  for (int j = 0; j < N + 2; ++j) t[j] = 0;
 #pragma unroll 1
   for (int k = 0; k < N; ++k) {
-    const uint32_t bk = b[k * n + i];
-    uint64_t c = 0;
+    cios_step<F>(t, x, y[0], p);
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      c = (uint64_t)x[j] * bk + t[j] + (c >> 32);
-      t[j] = (uint32_t)c;
-    }
-    c = (uint64_t)t[N] + (c >> 32);
-    t[N] = (uint32_t)c;
-    t[N + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * F::NPRIME;
-    c = (uint64_t)m * F::p(0) + t[0];
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      c = (uint64_t)m * F::p(j) + t[j] + (c >> 32);
-      t[j - 1] = (uint32_t)c;
-    }
-    c = (uint64_t)t[N] + (c >> 32);
-    t[N - 1] = (uint32_t)c;
-    t[N] = t[N + 1] + (uint32_t)(c >> 32);
+    for (int j = 0; j + 1 < N; ++j) y[j] = y[j + 1];
   }
   uint32_t d[N];
   uint32_t borrow = 0;
@@ -66,18 +211,20 @@ k_mont_mul_looped(const uint32_t* __restrict__ a,
   for (int j = 0; j < N; ++j) out[j * n + i] = ge ? d[j] : t[j];
 }
 
+template <class F>
+int launch_looped(const void* a, const void* b, void* out, int64_t n,
+                  cudaStream_t s) {
+  k_mont_mul_looped<F><<<blocks_for(n, LOOPED_T), LOOPED_T, 0, s>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace zk
 
 // field: 0 = Fr, 1 = Fq.  a, b, out: (nl, n) limb-major.
 extern "C" int zk_mont_mul_looped(int field, const void* a, const void* b,
                                   void* out, int64_t n, void* stream) {
-  const unsigned blocks = zk::blocks_for(n, 128);
   cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    zk::k_mont_mul_looped<zk::Fr><<<blocks, 128, 0, s>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
-  else
-    zk::k_mont_mul_looped<zk::Fq><<<blocks, 128, 0, s>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
+  if (field == 0) return zk::launch_looped<zk::Fr>(a, b, out, n, s);
+  return zk::launch_looped<zk::Fq>(a, b, out, n, s);
 }

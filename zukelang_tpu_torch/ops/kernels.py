@@ -61,7 +61,7 @@ _ARGTYPES = {
                                                   _P],
     "zk_jac_scan": [_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _P],
     "zk_weighted_chunk_sums": [_I32] + [_P] * 9 + [_I32, _I32, _I64, _P],
-    "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I64, _P],
+    "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I32, _I64, _I32, _P],
     "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
     "zk_fq_mul_chain": [_P, _P, _P, _I32, _P],
     # the NTT kernel (ops/ntt.py): a pointer to its NttArgs, s0, ns,
@@ -341,14 +341,18 @@ def _mont_mul_launch(kernel: str, cname: str, a, b, spec: FieldSpec):
 # mont_mul_looped
 # Replaces _mont_mul_kernel_looped (scripts/probe_looped_kernel.py:29, call
 # _looped_call :75), the TPU probe of compile time against body size.  K1's
-# product with the outer limb loop rolled (`#pragma unroll 1`) and the
-# inner loops unrolled, in its own source (csrc/mont_mul_looped.cu) so its
-# nvcc time and registers show apart from K1's.  Bound: as K1, integer
-# products.  Its plain version is K1's.
+# product with the outer limb loop rolled (`#pragma unroll 1`), in its own
+# source (csrc/mont_mul_looped.cu) so its nvcc time and registers show
+# apart from K1's: a's and b's limbs loaded before the loop, each row of a
+# CIOS step one PTX carry chain, one element a thread, 128 threads a
+# block.  Bound: at 2^20 Fq the bytes, with the limb products'
+# instruction throughput close behind.  Its plain version is K1's.
 # ---------------------------------------------------------------------------
 
-def mont_mul_looped(a: torch.Tensor, b: torch.Tensor,
-                    spec: FieldSpec) -> torch.Tensor:
+
+def mont_mul_looped(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec
+                    ) -> torch.Tensor:
+    """a * b * R^-1 mod p as K1, by the looped kernel."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, spec)
     return _mont_mul_launch("mont_mul_looped", "zk_mont_mul_looped", a, b,
@@ -846,6 +850,12 @@ def _row_coord(v: torch.Tensor, group: str) -> torch.Tensor:
     return v.reshape(2, v.shape[0] // 2, v.shape[1]) if group == "g2" else v
 
 
+def _jac_of_affine(cx, cy, o: FieldOps):
+    """Affine (0, 0) = infinity -> Jacobian with Z = 1, or Z = 0."""
+    cinf = o.is_zero(cx) & o.is_zero(cy)
+    return cx, cy, o.sel(cinf, torch.zeros_like(cx), o.one(cx))
+
+
 def _segmented_madds(g, s, group: str):
     """The scan of K5 and K8 in torch ops: g (lanes, K, 2 R) the affine
     rows of each lane's K steps, s (lanes, K) segment ids or None (one
@@ -856,9 +866,8 @@ def _segmented_madds(g, s, group: str):
     flag = torch.zeros(lanes, dtype=torch.bool, device=g.device)
     acc = None
     for t in range(K):
-        CX, CY = _row_coord(g[:, t, :R], group), _row_coord(g[:, t, R:], group)
-        cinf = o.is_zero(CX) & o.is_zero(CY)
-        CZ = o.sel(cinf, torch.zeros_like(CX), o.one(CX))
+        CX, CY, CZ = _jac_of_affine(_row_coord(g[:, t, :R], group),
+                                    _row_coord(g[:, t, R:], group), o)
         if t == 0:
             acc = (CX, CY, CZ)
         else:
@@ -1198,44 +1207,143 @@ def weighted_chunk_sums(points, K: int, g: int = None):
 # K8  bucket_scan
 # Replaces bucket_scan_pallas (pallas_kernels.py:807; kernel
 # _seg_scan_kernel :709, call _seg_scan_call :778).  K5's scan on the flat
-# layout: one thread per chunk lane m reads columns m*K + t in place and
-# restarts where seg differs from its predecessor, with the accumulator
-# and flag in registers (no (K, rows, M) relayout, no segp, no padding).
-# Bound: 11 field products per continuing finite step; the stride-K reads
-# are not coalesced.
+# layout (element t of chunk m at column m*K + t), seg compared with its
+# predecessor in the kernel; G1 blocks stage their columns in shared
+# memory where the copies fit (coalesced, not L words apart a lane).  A
+# group of g lanes (`bscan_group`) shares a chunk, L = K/g consecutive
+# points a lane: each lane sums its points with madds (the doubling case
+# resolved), a shuffle scan over the g lane totals with full adds gives
+# each lane its carry-in, and each lane scans its points again from it,
+# storing every step and raising the flag where the sequential scan
+# raises it.  Bound: the chain of dependent madds and adds a chunk (2L - 1
+# madds + log2 g adds; K - 1 madds at g = 1) on a narrow launch, the
+# throughput of their products (2K - g madds + g log2 g adds a chunk) on
+# a wide one.  The products take their operands by value, so the
+# formulas' temporaries stay off the stack (PERF.md §6).
 # ---------------------------------------------------------------------------
 
-def bucket_scan_plain(points, seg: torch.Tensor, K: int, group: str):
-    """K5's scan in torch ops on the chunk layout of the flat input, every
-    step kept."""
-    X, Y = (x.reshape(-1, x.shape[-1]) for x in points)
-    n = X.shape[1]
+# A full add's time in mixed adds (16 coordinate products against 11).
+BSCAN_ADD = 1.5
+# Thread-madds the card runs in the time of one dependent madd of a lone
+# warp (K8's launch shapes: G1 2 blocks of 128 an SM, G2 3 of 64): beyond
+# it a wide launch is bound by throughput and memory, not its chain.  Fitted
+# on an H100 to `profile_kernels --sweep`, every g at the path's shapes
+# (PERF.md): it picks the fastest g at each of them.
+BSCAN_RATE = {"g1": 25000, "g2": 22000}
+
+
+def _bscan_chain(K: int, g: int) -> float:
+    """Dependent steps of one K8 chunk at g lanes, in madds."""
+    L = K // g
+    return K - 1 if g == 1 else 2 * L - 1 + BSCAN_ADD * (g.bit_length() - 1)
+
+
+def _bscan_work(K: int, g: int) -> float:
+    """Madds one K8 chunk runs at g lanes (every lane of a group runs
+    each phase-2 round)."""
+    L = K // g
+    return K - 1 if g == 1 else g * (2 * L - 1 + BSCAN_ADD * (
+        g.bit_length() - 1))
+
+
+def bscan_group(chunks: int, K: int, group: str) -> int:
+    """Lanes per chunk of K8: the power of two g (dividing K, at most 32)
+    with the least max(chain, chunks x work / BSCAN_RATE[group]).  A pure
+    function of the shapes: the wrapper and the plain version both call
+    it, so they add in the same order."""
+    gs = [1 << i for i in range(6) if K % (1 << i) == 0]
+    return min(gs, key=lambda g: max(
+        _bscan_chain(K, g), chunks * _bscan_work(K, g) / BSCAN_RATE[group]))
+
+
+def bucket_scan_plain(points, seg: torch.Tensor, K: int, group: str,
+                      g: int = None):
+    """The kernel's additions in its order, g lanes per chunk (default
+    `bscan_group`); at g = 1 the sequential scan of each chunk (K5's,
+    `_segmented_madds`)."""
+    o = _OPS[group]
+    n = seg.shape[-1]
     M = n // K
-    g = torch.cat([X, Y]).t().reshape(M, K, -1)
-    steps = list(_segmented_madds(g, seg.reshape(M, K), group))
-    flag = steps[-1][2]
-    shape = points[0].shape
-    return tuple(torch.stack([acc[i].reshape(-1, M) for _t, acc, _f in steps],
-                             dim=-1).reshape(shape)
-                 for i in range(3)), flag
+    g = bscan_group(M, K, group) if g is None else g
+    L = K // g
+    dev = seg.device
+    px, py = (x.reshape(x.shape[:-1] + (M * g, L)) for x in points)
+    restart = torch.zeros(n, dtype=torch.bool, device=dev)
+    restart[1:] = seg[1:] != seg[:-1]
+    restart[::K] = True                         # each chunk's first point
+    restart = restart.reshape(M * g, L)
+    lane = torch.arange(M * g, device=dev) % g
+
+    def at(t):
+        return _jac_of_affine(px[..., t], py[..., t], o)
+
+    def madd(acc, t):
+        """acc + point t, or point t where it restarts; and the lanes
+        whose madd met P == Q."""
+        cur = at(t)
+        X3, Y3, Z3, same = _madd(acc, cur[:2], o)
+        rs = restart[:, t]
+        return (tuple(o.sel(rs, c, a) for c, a in zip(cur, (X3, Y3, Z3))),
+                same & ~rs)
+
+    acc = None
+    if g > 1:
+        acc = at(0)
+        for t in range(1, L):
+            start = acc
+            acc, same = madd(acc, t)
+            if bool(same.any()):                # the doubling, resolved
+                acc = tuple(o.sel(same, d, a)
+                            for d, a in zip(_dbl(start, o), acc))
+        f = restart.any(dim=1)
+        d = 1
+        while d < g:
+            up = tuple(_lane_up(x, d, g) for x in acc)
+            fo = _lane_up(f, d, g)
+            added = _add(up, acc, o)
+            take = (lane >= d) & ~f
+            acc = tuple(o.sel(take, a, x) for a, x in zip(added, acc))
+            f = f | ((lane >= d) & fo)
+            d *= 2
+        acc = tuple(_lane_up(x, 1, g) for x in acc)     # the carry
+    flag = torch.zeros(M * g, dtype=torch.bool, device=dev)
+    outs = []
+    for t in range(L):
+        if t == 0 and g == 1:
+            acc = at(0)
+        else:
+            acc, same = madd(acc, t)
+            flag |= same
+        outs.append(acc)
+    return (tuple(torch.stack([a[i] for a in outs], dim=-1).reshape(
+        points[0].shape) for i in range(3)),
+        flag.reshape(M, g).any(dim=1))
 
 
-def bucket_scan(points, seg: torch.Tensor, K: int, group: str):
+def bucket_scan(points, seg: torch.Tensor, K: int, group: str,
+                g: int = None, in_place: bool = False):
     """In-chunk segmented mixed-add scan over sorted affine points.
 
     points (X, Y): (12, N) for G1, (2, 12, N) for G2, (0, 0) = infinity;
     seg (N,) int32 sorted bucket ids; N % K == 0.  Returns ((X, Y, Z) in
     the same layout, (N/K,) bool): element i holds the inclusive segmented
-    prefix sum of chunk i // K up to position i % K; a flagged lane hit
-    the doubling case of the mixed add and holds garbage."""
+    prefix sum of chunk i // K up to position i % K; a flagged chunk hit
+    the doubling case of the mixed add and holds garbage.  g lanes per
+    chunk (default `bscan_group`; a power of two dividing K, at most
+    32).  The G1 kernel stages a block's columns in shared memory where
+    two blocks' copies fit an SM (K = 32: g >= 4); `in_place` keeps it
+    from staging (the same words), to time the two forms side by side."""
     n = seg.shape[-1]
     if (K <= 0 or n % K or seg.shape != (n,)
             or any(x.shape != ((2, 12, n) if group == "g2" else (12, n))
                    for x in points)):
         raise ValueError(f"bucket_scan: bad shapes {points[0].shape}, "
                          f"{points[1].shape}, {seg.shape} for {group}, K={K}")
+    g = bscan_group(n // K, K, group) if g is None else g
+    if g < 1 or g > 32 or g & (g - 1) or K % g:
+        raise ValueError(f"bucket_scan: {g} lanes per chunk of {K}")
     if points[0].device.type == "cpu":
-        return bucket_scan_plain(points, seg, K, group)
+        return bucket_scan_plain(points, seg, K, group, g)
     ins = [x.contiguous() for x in (*points, seg)]
     _cuda_args(*ins)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
@@ -1244,5 +1352,5 @@ def bucket_scan(points, seg: torch.Tensor, K: int, group: str):
         _launch("bucket_scan", "zk_bucket_scan", ins[0].device,
                 _I32(int(group == "g2")), *(build.ptr(x) for x in ins),
                 *(build.ptr(x) for x in outs), build.ptr(flag), _I32(K),
-                _I64(n))
+                _I32(g), _I64(n), _I32(int(in_place)))
     return tuple(outs), flag != 0

@@ -12,7 +12,10 @@ be identical.  On the TPU the probe's question was compile time against
 body size, so it also prints, for each of the two sources, one nvcc run
 alone (`build.lone_nvcc_seconds`; the library build compiles every
 source at once, so its own nvcc times are contended), and each kernel's
-ptxas compile time, registers, stack and spills (`build.ptxas_entries`).
+ptxas compile time, registers, stack and spills (`build.ptxas_entries`),
+and the SASS instructions of K1's Fq kernel and of the looped Fq kernel
+(`build.sass_counts`): the looped body must be the smaller, or the
+outer loop was unrolled, and the probe raises.
 
 Needs a CUDA device: without one it raises, and never runs on the CPU
 instead.  Its last line is one JSON object.
@@ -53,6 +56,26 @@ def build_figures() -> dict:
                   "kernels": build.ptxas_entries(src)} for src in SOURCES}
 
 
+def sass_figures() -> dict:
+    """SASS instructions of K1's Fq kernel and of the looped Fq kernel;
+    raises unless the looped kernel has fewer."""
+    counts = build.sass_counts()
+
+    def one(tag):
+        found = [c for name, c in counts.items() if tag in name]
+        if len(found) != 1:
+            raise RuntimeError(f"probe_looped: {len(found)} kernels match "
+                               f"{tag} in the SASS")
+        return found[0]
+    res = {"k1_fq": one("10k_mont_mulINS_2FqE"),
+           "looped_fq": one("17k_mont_mul_loopedINS_2FqE")}
+    if res["looped_fq"] >= res["k1_fq"]:
+        raise AssertionError(f"probe_looped: the looped kernel has "
+                             f"{res['looped_fq']} SASS instructions, K1 "
+                             f"{res['k1_fq']}: its loop was unrolled")
+    return res
+
+
 def run(logn: int, dev: torch.device, log=print):
     """-> (result dict, (a, b, looped output))."""
     n = 1 << logn
@@ -78,6 +101,9 @@ def run(logn: int, dev: torch.device, log=print):
             log(f"  {src}: nvcc alone {fig['nvcc_alone_s']:.2f} s (in the "
                 f"parallel build {fig['nvcc_in_build_s']:.2f} s), kernels "
                 f"{fig['kernels']}")
+        res["sass"] = sass_figures()
+        log(f"  SASS instructions, Fq: looped {res['sass']['looped_fq']}, "
+            f"K1 {res['sass']['k1_fq']}")
         res["device"] = torch.cuda.get_device_name(dev)
     return res, (a, b, out_l)
 

@@ -30,8 +30,17 @@ Times: `timing.time_ms`, minimum of `--reps` after a warm-up, and the
 device time of one call (`torch.profiler`); with `--sweep`, K6 and K7 at
 every group width and K2's add and its small scan at every lane width.
 Also the latency of one dependent Fq product (`kernels.fq_mul_chain`),
-from which the adds', K3's and the window combine's chain bounds, and
-the registers and stack of the sources' kernels (`build.ptxas_entries`).
+from which the adds', K3's, K8's and the window combine's chain bounds,
+and the registers and stack of the sources' kernels
+(`build.ptxas_entries`).  K8 on the window path's own inputs (2^18 G1
+points sorted by their window-3 digits below 8193, K = 32) and at
+`chip_smoke.py`'s shape (2^16 G1 and G2, a restart at about half the
+steps), with its chain bound, and with `--sweep` at every group width g,
+on all-restart segments (every step a restart: K8's loads and stores
+without a madd), and for G1 also in place beside the staged form; the
+looped Montgomery product at Fq (12, 2^20) beside K1, and the SASS
+instructions of both (`probe_looped.sass_figures`).  `--k8-looped-only`
+runs these two and the product latency alone.
 It calls only functions whose signatures an earlier tree shares (the
 wrappers' public signatures, `_combine_windows`, `_window_v2`,
 `_hs_segmented_scan`, `_fixed_base_madd`, `_madd_chunk_scan`,
@@ -49,7 +58,7 @@ import json
 
 import torch
 
-from . import bench_lib, build
+from . import bench_lib, build, probe_looped, profile_msm
 from .engine import torch_engine as te
 from .ops import kernels as K
 from .ops import msm, ntt
@@ -99,6 +108,15 @@ CHAIN_LANES, CHAIN_C = 16, 16
 # times one product (`fq_product_us`)
 FQ_CHAIN_REPS = (1000, 101000)
 PHASE1_LOG = 18
+# K8: (label, group, log2 n, inputs): the window path's own (window 3 of
+# profile_msm's 2^18 bases, c = 14), or chip_smoke's coin-flip restarts;
+# K = 32
+K8_SHAPES = (("window 2^18", "g1", 18, "path"),
+             ("chip_smoke 2^16", "g1", 16, "coin"),
+             ("chip_smoke 2^16", "g2", 16, "coin"))
+K8_K = 32
+K8_C = 14
+LOOPED_LOG = 20
 _FQ_TOP = 0x1a0111ea   # top 32-bit limb of p: smaller top limbs are below p
 
 
@@ -385,6 +403,110 @@ def madd_chains(gen, dev, reps: int, fq_us: dict = None):
     return rows
 
 
+def _k8_chain_products(K_: int, g: int, group: str) -> int:
+    """Fq products on the dependent chain of one K8 chunk at g lanes: 11
+    a mixed add, 16 a full add (x3 for G2, three Fq products an Fq2
+    product)."""
+    L = K_ // g
+    madds, adds = (K_ - 1, 0) if g == 1 else (2 * L - 1, g.bit_length() - 1)
+    return (11 * madds + 16 * adds) * (3 if group == "g2" else 1)
+
+
+def _k8_inputs(group: str, logn: int, kind: str, gen, dev):
+    """(points, seg) of a `K8_SHAPES` row: the window path's own sorted
+    points and digits (`profile_msm`'s window of its 2^logn bases k G),
+    or random affine points (every 13th at infinity) under coin-flip
+    restarts."""
+    n = 1 << logn
+    if kind == "path":
+        Paff, S, _scalars, _ks = profile_msm.make_inputs(logn, dev)
+        dig = msm._scalars_to_signed_windows(S, K8_C)[
+            profile_msm.WINDOW].contiguous()
+        pts, absd = msm._apply_signs(Paff, dig)
+        seg, order = K.digit_sort(absd.reshape(1, n), msm.n_buckets(K8_C))
+        order = order[0].to(torch.int64)
+        return tuple(x[..., order].contiguous() for x in pts), seg[0]
+    P = (_coord(group, n, gen, dev), _coord(group, n, gen, dev))
+    for x in P:
+        x.reshape(-1, n)[:, ::13] = 0
+    seg = torch.cumsum(torch.randint(0, 2, (n,), generator=gen, device=dev),
+                       0)
+    return P, seg.to(torch.int32)
+
+
+def k8_scans(gen, dev, reps: int, sweep: bool, fq_us: dict = None):
+    """K8 at `K8_SHAPES`: time and device time at the wrapper's g and,
+    with fq_us, its chain bound; with `sweep`, at every g (dividing K),
+    also on all-restart segments (no madd: K8's loads and stores alone),
+    and for G1 the same in place (`in_place=True`; the wrapper stages a
+    block's columns in shared memory from g = 4 at K = 32), its words
+    held equal to the staged form's."""
+    widths = getattr(K, "bscan_group", None)
+    forms = "in_place" in inspect.signature(K.bucket_scan).parameters
+    rows = []
+    for label, group, logn, kind in K8_SHAPES:
+        n = 1 << logn
+        P, seg = _k8_inputs(group, logn, kind, gen, dev)
+        g = widths(n // K8_K, K8_K, group) if widths else 1
+
+        def run(w=None, s=seg, **kw):
+            return (K.bucket_scan(P, s, K8_K, group, w, **kw) if widths
+                    else K.bucket_scan(P, s, K8_K, group))
+        row = {"shape": label, "group": group, "points": n,
+               "chunks": n // K8_K, "g": g,
+               "ms": time_ms(run, dev, reps)[0],
+               "device_ms": _device_ms(run)}
+        if fq_us:
+            row["chain_bound_ms"] = _chain_bound_ms(
+                _k8_chain_products(K8_K, g, group), fq_us["fq_mul_us"])
+        if sweep and widths:
+            gs = [w for w in (1, 2, 4, 8, 16, 32) if K8_K % w == 0]
+            every = torch.arange(n, dtype=torch.int32, device=dev)
+            row["ms_by_g"] = {w: time_ms(lambda: run(w), dev, reps)[0]
+                              for w in gs}
+            row["device_ms_by_g"] = {w: _device_ms(lambda: run(w))
+                                     for w in gs}
+            row["all_restart_device_ms_by_g"] = {
+                w: _device_ms(lambda: run(w, every)) for w in gs}
+            if forms and group == "g1":
+                for w in gs:
+                    a, b = run(w), run(w, in_place=True)
+                    if not (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+                            and torch.equal(a[1], b[1])):
+                        raise AssertionError(f"K8 g = {w}: the staged and "
+                                             "the in-place forms differ")
+                row["in_place_ms_by_g"] = {
+                    w: time_ms(lambda: run(w, in_place=True), dev, reps)[0]
+                    for w in gs}
+                row["in_place_all_restart_device_ms_by_g"] = {
+                    w: _device_ms(lambda: run(w, every, in_place=True))
+                    for w in gs}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del P, seg
+    return rows
+
+
+def looped_product(gen, dev, reps: int):
+    """The looped product at Fq (12, 2^LOOPED_LOG) beside K1 (time and
+    device time), its output held equal to K1's; and the SASS
+    instructions of both kernels."""
+    from .params import FQ
+    n = 1 << LOOPED_LOG
+    a, b = (_coord("g1", n, gen, dev) for _ in range(2))
+    if not torch.equal(K.mont_mul_looped(a, b, FQ), K.mont_mul(a, b, FQ)):
+        raise AssertionError("mont_mul_looped differs from K1")
+    row = {"field": "Fq", "n": n,
+           "k1_ms": time_ms(lambda: K.mont_mul(a, b, FQ), dev, reps)[0],
+           "k1_device_ms": _device_ms(lambda: K.mont_mul(a, b, FQ)),
+           "ms": time_ms(lambda: K.mont_mul_looped(a, b, FQ), dev, reps)[0],
+           "device_ms": _device_ms(lambda: K.mont_mul_looped(a, b, FQ))}
+    if hasattr(probe_looped, "sass_figures"):
+        row["sass"] = probe_looped.sass_figures()
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def ntt_forms(gen, dev, reps: int):
     """The four NTT forms on one vector of each of `NTT_LOGS`, then the
     witness reduction of the Groth16 2^16 prove's circuit."""
@@ -425,6 +547,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--points-only", action="store_true",
                     help="only the Fq product latency, K2's add and K3's "
                          "chain")
+    ap.add_argument("--k8-looped-only", action="store_true",
+                    help="only the Fq product latency, K8 and the looped "
+                         "product")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -433,7 +558,8 @@ def main(argv=None) -> dict:
     gen.manual_seed(4)
     build.library()
 
-    others = not (args.stages_only or args.points_only)
+    others = not (args.stages_only or args.points_only
+                  or args.k8_looped_only)
     sorts = []
     for label, rows, logn, nkeys in (SORT_SHAPES if others else ()):
         keys = torch.randint(0, nkeys, (rows, 1 << logn), generator=gen,
@@ -471,23 +597,29 @@ def main(argv=None) -> dict:
 
     scans = jac_scans(gen, dev, args.reps, args.sweep) if others else []
     points = others or args.points_only
-    fq_us = fq_product_us(gen, dev, args.reps) if points else {}
+    k8 = others or args.k8_looped_only
+    fq_us = (fq_product_us(gen, dev, args.reps) if points or k8 else {})
     adds = (point_adds(gen, dev, args.reps, args.sweep, fq_us) if points
             else [])
     chains = madd_chains(gen, dev, args.reps, fq_us) if points else []
+    scans8 = k8_scans(gen, dev, args.reps, args.sweep, fq_us) if k8 else []
+    looped = looped_product(gen, dev, args.reps) if k8 else {}
     forms = ntt_forms(gen, dev, args.reps) if others else []
-    stages = [] if args.points_only else msm_stages(gen, dev, args.reps)
+    stages = (msm_stages(gen, dev, args.reps) if others or args.stages_only
+              else [])
     res = {"card": torch.cuda.get_device_name(0), "card_line": card_line(),
            "digit_sort": sorts,
            "weighted_chunk_sums": wsums, "jac_scan": scans,
            "fq_product_us": fq_us, "point_add": adds,
-           "point_madd_chain": chains, "ntt": forms,
+           "point_madd_chain": chains, "bucket_scan": scans8,
+           "mont_mul_looped": looped, "ntt": forms,
            "msm_stages": stages,
            "ptxas": {src: build.ptxas_entries(src)
                      for src in ("digit_sort.cu", "weighted_sums.cu",
                                  "point_ops.cu", "point_add.cu",
                                  "point_madd.cu", "bucket_scan.cu",
-                                 "jac_scan.cu", "ntt.cu")
+                                 "jac_scan.cu", "ntt.cu", "mont_mul.cu",
+                                 "mont_mul_looped.cu")
                      if src in build.report()}}
     print(json.dumps(res))
     return res
