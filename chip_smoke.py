@@ -25,19 +25,22 @@ Phases (any failure raises and the script exits non-zero):
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
-  4. Groth16 at 2^16: keygen, prove (one cold, three warm) and verify on
-     make_synthetic_r1cs(16, seed=1), every kernel launch counted, K3's
-     chain held against its plain version on the keygen's small batch;
-     then one more prove whose witness reduction, K4, K5, K6, K7 and K2
+  4. Groth16 at 2^16 through the bench entry point
+     (`bench_lib.run_groth16(16, seed=1)`: keygen, one cold and three
+     warm proves, verify), every kernel launch counted, K3's chain held
+     against its plain version on the keygen's small batch; then one
+     more prove whose witness reduction, K1, K4, K5, K6, K7 and K2
      inputs are kept, and each of those calls against its plain version:
-     the fused witness reduction (the NTT kernel, a, b and h), K4 on the
+     the fused witness reduction (the NTT kernel, a, b and h), K1's
+     conversions, K4 on the
      G1 (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
      `torch.sort`, K5 on both groups' whole blocks, K6 on the three levels
      of the weighted reduction in each group, K7 on every carry scan, the
      doubling on the window combine and the reduction's doublings in each
      group, K2's add on each Hillis-Steele tail and window combine (the
      small scan), each carry add and each add of the weighted reduction;
-     and the launches of one witness reduction (at most 10);
+     and the launches of one witness reduction (at most 10); the phase's
+     wall time and the run as a `bench_rung` record;
   5. Pinocchio at the JAX bench's size: make_synthetic_r1cs(14, seed=1)
      on its 2^16 domain (`bench_lib.run_pinocchio`): keygen, ZK proves
      (one cold, three warm), verify; then one NonZK prove and its verify,
@@ -60,14 +63,22 @@ Phases (any failure raises and the script exits non-zero):
      equal to K1's, both timed, the nvcc and ptxas figures of both
      sources and their kernels' SASS instructions (the looped kernel's
      fewer than K1's, or it raises); then the looped kernel against its
-     plain version there.
-Phases 4 and 5 also print the launches of one prove.
-Each path of phases 4 to 7 starts from zeroed counts; every kernel of
+     plain version there;
+  8. Groth16 at 2^20, as phase 4 (c = 16: 16 windows of 32,769
+     buckets, G1 64 and G2 16 digit rows of 2^20).  K4, the witness
+     reduction and every K1 and K2 call are checked whole; a K5, K6 or K7
+     call of more than SAMPLE_ABOVE_CHUNKS chunks on a sample of its
+     block rows (the first, two between and the last), the whole call
+     timed.  Phases 4 and 8 print keygen_s, prove_first_s, prove_s,
+     verify_s, msm_mterms_per_s, the launches of one prove and the peak
+     memory of keygen and of a prove.
+Phases 4, 5 and 8 also print the launches of one prove.
+Each path of phases 4 to 8 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
 add at most MAX_ADD_LAUNCHES times a prove.  Then one JSON
-line with the kernel summaries, the card line, and the last line
-{"ok": true, "device": {...}}.
+line with the kernel summaries (each kernel's last check on a whole
+input), the card line, and the last line {"ok": true, "device": {...}}.
 
 Without CUDA it stops at once with a non-zero exit and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -86,6 +97,7 @@ sys.modules["jax"] = None           # any JAX import below fails loudly
 sys.modules["zukelang_tpu"] = None  # and so does any import of the JAX package
 
 LOG_CONSTRAINTS = 16        # the bench headline groth16_prove_2^16
+BIG_LOG_CONSTRAINTS = 20    # the JAX bench's groth16_prove_2^20
 PIN_LOG_CONSTRAINTS = 14    # the JAX bench's pinocchio_prove_2^14
 WINDOW_LOG, WINDOW_C = 18, 14   # the JAX MSM profilers' window
 GOLDEN_LOG = 10             # the window route against golden G1.dot
@@ -126,8 +138,13 @@ PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
 NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
 MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # K2 add launches a prove: a Hillis-Steele tail, a combine, the carry
-# adds and the two weighted-reduction adds of each group's batch
-MAX_ADD_LAUNCHES = {"groth16": 15, "pinocchio": 15}
+# adds and the weighted-reduction adds of each group's batch.  At 2^20
+# (c = 16) the carry scan over each group's chunk tails and the weighted
+# reduction take one level more in each group than at 2^16.
+MAX_ADD_LAUNCHES = {"groth16_2^16": 15, "pinocchio": 15, "groth16_2^20": 19}
+# Above this many chunks a K5, K6 or K7 call of the 2^20 path is held
+# against its plain version on a sample of its block rows
+SAMPLE_ABOVE_CHUNKS = 8192
 WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
                   "point_madd", "mont_mul")
 PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
@@ -269,6 +286,53 @@ def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
         raise AssertionError(f"{name}: kernel disagrees with plain")
 
 
+def record_sampled(name, kern, plain, pick, work, what, reps=20):
+    """Hold the whole kernel call's output at the sampled columns
+    (`pick(got)`) against the plain version on the sample (`plain`), where
+    the plain version on the whole input costs too much.  `ms` and the
+    bound are the whole call's, `plain_ms` the plain version's on the
+    sample (once, by the host clock)."""
+    import torch
+    from zukelang_tpu_torch.timing import time_ms
+    dev = torch.device("cuda:0")
+    got = kern()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_err(pick(got), want)
+    ms = time_ms(kern, dev, reps, "mean")[0]
+    bound_ms, bound_by = _bound(*work(got))
+    RESULTS.setdefault(name, []).append(dict(
+        err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, sample=what))
+    log(f"  {name}: max_abs_err {err} on {what}  kernel {ms:.4f} ms (whole "
+        f"call)  plain {plain_ms:.4f} ms (on the sample)  bound {bound_ms:.4f} "
+        f"ms ({bound_by}, whole call)")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with plain on {what}")
+
+
+def _rows_sample(rows: int):
+    """Block rows held against the plain version where all of them cost
+    too much: the first, two between and the last."""
+    return sorted({0, rows // 3, 2 * rows // 3, rows - 1})
+
+
+def _chunk_sample(M: int, K: int, rows: int, device):
+    """(chunks, columns, what) of the sampled block rows of M chunks of K
+    points laid out row after row, or None to check the call whole."""
+    import torch
+    if M <= SAMPLE_ABOVE_CHUNKS or M % rows:
+        return None
+    per, S = M // rows, _rows_sample(rows)
+    rs = torch.tensor(S, device=device)
+    chunks = (rs[:, None] * per + torch.arange(per, device=device)).reshape(-1)
+    cols = (chunks[:, None] * K + torch.arange(K, device=device)).reshape(-1)
+    return chunks, cols, f"block rows {S} of {rows} ({per} chunks each)"
+
+
 def _add_work(group, P, Q):
     """work(got) of a K2 add (add-2007-bl): 16 coordinate products per
     lane with both operands finite, 15 where they are equal (8 + the
@@ -362,7 +426,7 @@ def _k5_work(group, rows, idx, seg, K):
     """work(got) of a K5 call: 11 coordinate products per continuing
     step with both operands finite; bytes: the row table, indices and
     segment ids read once, the outputs written once."""
-    inf = (rows[idx.reshape(-1).long()] == 0).all(dim=1).reshape(-1, K).t()
+    inf = (rows == 0).all(dim=1)[idx.reshape(-1).long()].reshape(-1, K).t()
     sk = seg.reshape(-1, K).t()
     restart = sk != sk.roll(1, 0)
     restart[0] = True
@@ -704,68 +768,66 @@ def _check_launches(path: str, counts: dict, required,
                              f"{MAX_ADD_LAUNCHES[path]}")
 
 
-def groth16_path(dev, log_constraints: int):
-    import torch
-    from zukelang_tpu_torch import bench_lib, profile_prove
+def _capture_prove(crs, fc, wm):
+    """One more Groth16 prove with the inputs of its kernel calls kept."""
     from zukelang_tpu_torch.engine import torch_engine as te
-    from zukelang_tpu_torch.golden.field import Fr
     from zukelang_tpu_torch.ops import kernels as K
-    from zukelang_tpu_torch.ops import msm
     from zukelang_tpu_torch.protocols import groth16_device as gd
     from zukelang_tpu_torch.rng import Gen
+    return _capture_inputs(
+        lambda: gd.prove_device(crs, fc, wm, Gen(b"bench-capture")),
+        [(K, k) for k in ("digit_sort", "weighted_chunk_sums",
+                          "bucket_scan_rows", "point_double_n", "jac_scan",
+                          "point_add", "point_add_carry", "seg_scan_small",
+                          "mont_mul")]
+        + [(te, "run_witness_reduction")])
 
-    t0 = time.time()
-    inst = bench_lib.make_synthetic_r1cs(
-        log_constraints, seed=1,
-        pad_log=bench_lib.canon_pad_log(log_constraints))
-    fc = inst.fc
-    log(f"build_r1cs_s {time.time() - t0:.3f}  (domain 2^{fc.logn})")
 
+def groth16_path(dev, log_constraints: int, sample: bool = False):
+    """Phases 4 and 8: Groth16 through `bench_lib.run_groth16` (keygen, one
+    cold and three warm proves, verify), every launch counted, K3's chain
+    on the keygen's small batch; then one more prove's kernel calls
+    against their plain versions (`prove_path_kernel_checks`)."""
+    import torch
+    from zukelang_tpu_torch import bench_lib, bench_rung, profile_prove
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+
+    t_phase = time.time()
     msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
     K.reset_counts()
-    t0 = time.time()
     out = {}
     keygen_seen = _capture_inputs(
-        lambda: out.setdefault("keys", gd.keygen_device(
-            fc, mids=list(inst.mids_cols), ios=list(inst.ios_cols),
-            rng=Gen(b"bench-keygen"), device=dev)),
+        lambda: out.setdefault("run", bench_lib.run_groth16(
+            log_constraints, seed=1, repeats=3, device=dev)),
         [(K, "point_madd_chain"), (msm, "_fixed_base_madd")])
     torch.cuda.synchronize()
-    keygen_s = time.time() - t0
-    crs, vkey = out["keys"]
-    keygen_madds = K.LAUNCHES["point_madd"]
-    wm = inst.pack_witness(dev)
-    t0 = time.time()
-    proof = gd.prove_device(crs, fc, wm, Gen(b"bench-prove"))
-    prove_first_s = time.time() - t0
-    times = []
-    for i in range(3):
-        before = dict(K.LAUNCHES)
-        t0 = time.time()
-        proof = gd.prove_device(crs, fc, wm, Gen(b"bench-prove-%d" % i))
-        times.append(time.time() - t0)
-    per_prove = _diff(K.LAUNCHES, before)
-    t0 = time.time()
-    public = {int(col): Fr(inst.witness[col]) for col in inst.ios_cols}
-    ok = gd.verify(public, vkey, proof)
-    verify_s = time.time() - t0
     counts = dict(K.LAUNCHES)
-    prove_s = min(times)
-    n = 1 << log_constraints
-    msm_terms = 4 * n + len(inst.mids_cols) + 3 * n
-    log(f"keygen_s {keygen_s:.3f}  (K3 launches in keygen: {keygen_madds})")
-    log(f"prove_first_s {prove_first_s:.3f}")
-    log(f"prove_s {prove_s:.4f}  (warm runs {[round(t, 4) for t in times]})")
-    log(f"verify_s {verify_s:.3f}  verified {ok}")
-    log(f"msm_mterms_per_s {msm_terms / prove_s / 1e6:.3f}  "
-        f"(G1-equivalent terms per prove: {msm_terms})")
-    log(f"launches per prove: {per_prove}")
-    if not ok:
-        raise AssertionError("groth16: proof does not verify")
-    _check_launches("groth16", counts, PROVE_KERNELS, keygen_madds,
-                    len(keygen_seen["_fixed_base_madd"]), per_prove)
+    run = out["run"]
+    res = run.record()
+    path = f"groth16_2^{log_constraints}"
+    keygen_madds = run.keygen_launches["point_madd"]
+    log(f"build_r1cs_s {run.build_r1cs_s:.3f}  (domain 2^{res['domain_log']})")
+    log(f"keygen_s {run.keygen_s:.3f}  (K3 launches in keygen: "
+        f"{keygen_madds}; peak memory {run.keygen_peak_mb} MB)")
+    log(f"prove_first_s {run.prove_first_s:.3f}")
+    log(f"prove_s {res['prove_s']:.4f}  (warm runs "
+        f"{[round(t, 4) for t in run.warm_s]}; peak memory of a prove "
+        f"{run.prove_peak_mb} MB)")
+    log(f"verify_s {run.verify_s:.3f}  verified {run.verified}")
+    log(f"msm_mterms_per_s {res['msm_mops_per_s']:.3f}  (G1-equivalent "
+        f"terms per prove: {res['msm_terms_per_prove']})")
+    log(f"launches per prove: {run.prove_launches}")
+    log(f"launches in keygen: {run.keygen_launches}")
+    t0 = time.time()
+    run.inst.pack_witness(dev)
+    torch.cuda.synchronize()
+    log(f"pack_witness_s {time.time() - t0:.3f}  (host packing of "
+        f"{len(run.inst.witness)} witness values and the copy to the card)")
+    _check_launches(path, counts, PROVE_KERNELS, keygen_madds,
+                    len(keygen_seen["_fixed_base_madd"]), run.prove_launches)
     if keygen_madds != 1:
-        raise AssertionError(f"groth16: {keygen_madds} K3 launches in keygen, "
+        raise AssertionError(f"{path}: {keygen_madds} K3 launches in keygen, "
                              "expected 1 (the io batch's chain)")
     for (tab, steps, dig, cw), _kw in keygen_seen["point_madd_chain"]:
         log(f"K3 point_madd_chain at the keygen's inputs ({dig.shape[1]} "
@@ -775,22 +837,27 @@ def groth16_path(dev, log_constraints: int):
                lambda: K.point_madd_chain_plain(tab, steps, dig, cw),
                _chain_work(K.group_of(tab[0]), tab, steps, dig, cw, None),
                plain_reps=0)
-    wr = profile_prove.witness_reduction_launches(fc, wm)
+    # the launches are counted on the host: at 2^20 the profiler dropped
+    # some or all of the reduction's device records (5 of 6, then 0 of 6,
+    # in two runs on the H100)
+    wr = profile_prove.witness_reduction_launches(run.inst.fc, run.witness)
     log(f"launches of one witness reduction: {wr['kernel_launches']} "
-        f"kernel launches, {wr['device_events']} device events "
+        f"kernel launches, {wr['device_events']} device events recorded "
         f"({wr['device_ms']:.4f} device ms): {wr['by_kernel']}")
-    if not 0 < wr["device_events"] <= MAX_WITNESS_REDUCTION_LAUNCHES:
-        raise AssertionError(f"groth16: the witness reduction made "
-                             f"{wr['device_events']} device events, more "
-                             f"than {MAX_WITNESS_REDUCTION_LAUNCHES}")
-    seen = _capture_inputs(
-        lambda: gd.prove_device(crs, fc, wm, Gen(b"bench-capture")),
-        [(K, k) for k in ("digit_sort", "weighted_chunk_sums",
-                          "bucket_scan_rows", "point_double_n", "jac_scan",
-                          "point_add", "point_add_carry", "seg_scan_small")]
-        + [(te, "run_witness_reduction")])
-    prove_path_kernel_checks(seen)
-    return counts, per_prove
+    if not (0 < wr["kernel_launches"] <= MAX_WITNESS_REDUCTION_LAUNCHES
+            and wr["device_events"] <= MAX_WITNESS_REDUCTION_LAUNCHES):
+        raise AssertionError(
+            f"{path}: the witness reduction made {wr['kernel_launches']} "
+            f"kernel launches and {wr['device_events']} device events, "
+            f"more than {MAX_WITNESS_REDUCTION_LAUNCHES}")
+    prove_path_kernel_checks(_capture_prove(run.crs, run.inst.fc,
+                                            run.witness), path, sample)
+    rec = bench_rung.rung_record(f"groth16_prove_2^{log_constraints}",
+                                 log_constraints, res, time.time() - t_phase,
+                                 dev)
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    log(json.dumps(rec))
+    return counts, run.prove_launches
 
 
 def _capture_inputs(run, targets):
@@ -816,29 +883,46 @@ def _capture_inputs(run, targets):
     return seen
 
 
-def prove_path_kernel_checks(seen):
-    """The witness reduction, K4, K5, K6, K7, K2's doubling and K2's add
-    against their plain versions on one Groth16 prove's own inputs: the
-    fused reduction's a, b and h; the G1 and G2 digit blocks, beside the
-    stable `torch.sort`; K5 on both groups' whole blocks; the three levels
-    of `_wreduce_batched` in each group; every carry scan of K7; the
-    window combine's chain and the reduction's doublings in each group;
-    every K2 add: each Hillis-Steele tail and window combine (the small
-    scan), each carry add and the weighted reduction's adds."""
+def _wreduce_levels(nb: int) -> int:
+    """K6 launches a group of `msm._wreduce_batched` over nb buckets."""
+    from zukelang_tpu_torch.ops import msm
+    K = msm.CHUNK
+    per, levels = -(-nb // K) * K, 1
+    while per // K > 1:
+        per, levels = -(-(per // K) // K) * K, levels + 1
+    return levels
+
+
+def prove_path_kernel_checks(seen, path: str, sample: bool = False):
+    """The witness reduction, K1, K4, K5, K6, K7, K2's doubling and K2's
+    add against their plain versions on one Groth16 prove's own inputs:
+    the fused reduction's a, b and h; K1's conversions; the G1 and G2
+    digit blocks, beside the stable `torch.sort`; K5 on both groups'
+    blocks; every level of `_wreduce_batched` in each group; every carry
+    scan of K7; the window combine's chain and the reduction's doublings
+    in each group; every K2 add: each Hillis-Steele tail and window
+    combine (the small scan), each carry add and the weighted reduction's
+    adds.  With `sample`, a K5, K6 or K7 call over more than
+    SAMPLE_ABOVE_CHUNKS chunks is held on a sample of its block rows
+    (`record_sampled`); every other call whole."""
     import torch
     from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
     sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
     scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
     jscans, wreds = seen["jac_scan"], seen["run_witness_reduction"]
-    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != (
-            2, 2, 6, 6, 1):
+    levels = _wreduce_levels(sorts[0][0][1]) if sorts else 0
+    want = (2, 2, 2 * levels, 2 * levels, 1)
+    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != want:
         raise AssertionError(
-            f"groth16 prove: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
+            f"{path} prove: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
             f"K6, {len(dbls)} doubling calls and {len(wreds)} witness "
-            "reductions, expected 2, 2, 6, 6 and 1")
+            f"reductions, expected {want}")
     if {K.group_of(a[0][0]) for a, _kw in jscans} != {"g1", "g2"}:
-        raise AssertionError("groth16 prove: K7 did not scan both groups")
+        raise AssertionError(f"{path} prove: K7 did not scan both groups")
+    # block rows (MSMs x windows) of each group's batch
+    rows_of = {group: idx.shape[0] for (_r, idx, _s, _k, group, _nb), _kw
+               in scans}
     (fc, wm), _kw = wreds[0]
     args = (*te._side_tensors(fc.l, wm.device),
             *te._side_tensors(fc.r, wm.device),
@@ -848,15 +932,36 @@ def prove_path_kernel_checks(seen):
     record("ntt", lambda: te.run_witness_reduction(fc, wm),
            lambda: te.witness_reduction_plain(fc.logn)(*args),
            _witness_reduction_work(fc, args), plain_reps=0)
+    for (a, b, spec), _kw in seen["mont_mul"]:
+        log(f"K1 mont_mul at the prove's inputs ({spec.name}, "
+            f"{tuple(a.shape)})")
+        record("mont_mul", lambda: K.mont_mul(a, b, spec),
+               lambda: K.mont_mul_plain(a, b, spec),
+               lambda got: (_nbytes(a, b, got),
+                            a[0].numel() * PRODUCTS[spec.name]),
+               plain_reps=0)
     for (pts, kc, *rest), kw in jscans:
         sg = rest[0] if rest else kw.get("seg")
         group = K.group_of(pts[0])
         chunks = pts[0].shape[-1] // kc
+        g = K.jac_scan_group(chunks, kc)
         log(f"K7 jac_scan at the prove's inputs ({group}, {chunks} chunks of "
-            f"{kc}, seg={sg is not None}, g = {K.jac_scan_group(chunks, kc)})")
-        record("jac_scan", lambda: K.jac_scan(pts, kc, sg),
-               lambda: K.jac_scan_plain(pts, kc, sg),
-               _jac_scan_work(group, pts, kc, sg), plain_reps=0)
+            f"{kc}, seg={sg is not None}, g = {g})")
+        smp = (_chunk_sample(chunks, kc, rows_of[group], pts[0].device)
+               if sample else None)
+        if smp is None:
+            record("jac_scan", lambda: K.jac_scan(pts, kc, sg),
+                   lambda: K.jac_scan_plain(pts, kc, sg),
+                   _jac_scan_work(group, pts, kc, sg), plain_reps=0)
+            continue
+        _ch, cols, what = smp
+        sub = tuple(x[..., cols] for x in pts)
+        record_sampled(
+            "jac_scan", lambda: K.jac_scan(pts, kc, sg),
+            lambda: K.jac_scan_plain(sub, kc, sg[cols] if sg is not None
+                                     else None, g),
+            lambda got: tuple(x[..., cols] for x in got),
+            _jac_scan_work(group, pts, kc, sg), what)
     for (keys, nb), _kw in sorts:
         log(f"K4 digit_sort at the prove's inputs ({tuple(keys.shape)}, "
             f"nb = {nb})")
@@ -865,22 +970,52 @@ def prove_path_kernel_checks(seen):
                lambda got: (_nbytes(keys, got), 0),
                library=lambda: torch.sort(keys, dim=-1, stable=True))
     for (rows, idx, seg, kc, group, nb), _kw in scans:
-        log(f"K5 bucket_scan_rows at the prove's inputs ({group}, whole: "
-            f"{tuple(idx.shape)} positions of a {rows.shape[0]}-row table, "
-            f"K = {kc}, nb = {nb})")
-        record("bucket_scan_rows",
-               lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
-               lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group, nb),
-               _k5_work(group, rows, idx, seg, kc), plain_reps=0)
+        B, M = idx.shape[0], idx.shape[1] // kc
+        whole = not sample or B * M <= SAMPLE_ABOVE_CHUNKS
+        log(f"K5 bucket_scan_rows at the prove's inputs ({group}, "
+            f"{'whole' if whole else 'sampled'}: {tuple(idx.shape)} positions "
+            f"of a {rows.shape[0]}-row table, K = {kc}, nb = {nb})")
+        if whole:
+            record("bucket_scan_rows",
+                   lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
+                   lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group,
+                                                    nb),
+                   _k5_work(group, rows, idx, seg, kc), plain_reps=0)
+            continue
+        S = _rows_sample(B)
+        rs = torch.tensor(S, device=idx.device)
+        lanes = (rs[:, None] * M + torch.arange(M, device=idx.device)).reshape(-1)
+        bcols = (rs[:, None] * nb
+                 + torch.arange(nb, device=idx.device)).reshape(-1)
+        record_sampled(
+            "bucket_scan_rows",
+            lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
+            lambda: K.bucket_scan_rows_plain(rows, idx[rs], seg[rs], kc, group,
+                                             nb),
+            lambda got: (tuple(x[..., lanes] for x in got[0]),
+                         tuple(x[..., bcols] for x in got[1]), got[2][lanes]),
+            _k5_work(group, rows, idx, seg, kc), f"block rows {S} of {B}")
     for i, ((pts, kc), _kw) in enumerate(wsums):
         group = K.group_of(pts[0])
         chunks = pts[0].shape[-1] // kc
+        g = K.wsum_group(chunks, kc)
         log(f"K6 weighted_chunk_sums at the prove's inputs ({group}, level "
-            f"{i % 3 + 1}: {chunks} chunks of {kc}, "
-            f"g = {K.wsum_group(chunks, kc)})")
-        record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(pts, kc),
-               lambda: K.weighted_chunk_sums_plain(pts, kc),
-               _wsum_work(group, pts, kc), plain_reps=1)
+            f"{i % levels + 1}: {chunks} chunks of {kc}, g = {g})")
+        smp = (_chunk_sample(chunks, kc, rows_of[group], pts[0].device)
+               if sample else None)
+        if smp is None:
+            record("weighted_chunk_sums",
+                   lambda: K.weighted_chunk_sums(pts, kc),
+                   lambda: K.weighted_chunk_sums_plain(pts, kc),
+                   _wsum_work(group, pts, kc), plain_reps=1)
+            continue
+        ch, cols, what = smp
+        sub = tuple(x[..., cols] for x in pts)
+        record_sampled(
+            "weighted_chunk_sums", lambda: K.weighted_chunk_sums(pts, kc),
+            lambda: K.weighted_chunk_sums_plain(sub, kc, g),
+            lambda got: tuple(tuple(x[..., ch] for x in part) for part in got),
+            _wsum_work(group, pts, kc), what)
     for (pts, counts), _kw in dbls:
         group = K.group_of(pts[0])
         n = pts[0].shape[-1]
@@ -894,11 +1029,11 @@ def prove_path_kernel_checks(seen):
     adds, carries = seen["point_add"], seen["point_add_carry"]
     smalls = seen["seg_scan_small"]
     n_adds = len(adds) + len(carries) + len(smalls)
-    if not carries or not smalls or n_adds > MAX_ADD_LAUNCHES["groth16"]:
+    if not carries or not smalls or n_adds > MAX_ADD_LAUNCHES[path]:
         raise AssertionError(
-            f"groth16 prove: {len(adds)} adds, {len(carries)} carry adds and "
+            f"{path} prove: {len(adds)} adds, {len(carries)} carry adds and "
             f"{len(smalls)} small scans, expected some of each and at most "
-            f"{MAX_ADD_LAUNCHES['groth16']} in all")
+            f"{MAX_ADD_LAUNCHES[path]} in all")
     for (pts, sg), _kw in smalls:
         group, n = K.group_of(pts[0]), pts[0].shape[-1]
         log(f"K2 seg_scan_small at the prove's inputs ({group}, {n} points, "
@@ -1164,12 +1299,16 @@ def main() -> int:
         dev, WINDOW_LOG, WINDOW_C)
     log(f"phase 7: looped-product probe at 2^{PROBE_LOG}")
     paths[f"probe_looped_2^{PROBE_LOG}"] = probe_path(dev, PROBE_LOG)
+    log(f"phase 8: groth16 at 2^{BIG_LOG_CONSTRAINTS}")
+    big = f"groth16_2^{BIG_LOG_CONSTRAINTS}"
+    paths[big] = groth16_path(dev, BIG_LOG_CONSTRAINTS, sample=True)
+    provers.append(big)
 
     kernels = []
     for name in K.KERNELS:
         source, replaces = REPLACES[name]
         rows = checks[name]
-        last = rows[-1]
+        last = [r for r in rows if "sample" not in r][-1]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -4,8 +4,8 @@ blocked runs the frozen x^3 + x + 3 vectors through the port's Groth16
 and Pinocchio ZK on the CPU, byte-equal to the golden proofs;
 and chip_smoke.py refuses to run (non-zero exit, no result) where there
 is no CUDA device instead of falling back to the CPU, and so do the
-card's entry points `profile_msm`, `probe_looped`, `profile_kernels` and
-`profile_prove`."""
+card's entry points `profile_msm`, `probe_looped`, `profile_kernels`,
+`profile_prove`, `bench` and `bench_rung`."""
 
 import os
 import re
@@ -110,7 +110,11 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 @pytest.mark.parametrize("module,args", [("profile_msm", ["6", "4"]),
                                          ("probe_looped", ["8"]),
                                          ("profile_kernels", []),
-                                         ("profile_prove", ["--log", "6"])])
+                                         ("profile_prove", ["--log", "6"]),
+                                         ("bench", []),
+                                         ("bench_rung", ["--proto", "groth16",
+                                                         "--logn", "6", "--out",
+                                                         "rung.json"])])
 def test_card_entry_points_refuse_the_cpu(module, args):
     """Without CUDA the entry point raises with jax and the JAX package
     blocked (so it imports neither) and prints no result."""

@@ -19,8 +19,11 @@ Layering (bottom to top), each module named after its JAX counterpart:
   engine/torch_engine      — witness reduction, keygen evaluation at tau
   protocols/               — device Groth16 and Pinocchio, Pinocchio verify
   vectors                  — the frozen x^3+x+3 vectors (testdata/)
-  bench_lib, profile_prove — synthetic R1CS, the Pinocchio bench run,
-                             stage and device times of a prove
+  bench_lib                — synthetic R1CS, the Groth16 and Pinocchio
+                             bench runs
+  bench_rung, bench        — one bench rung as a process; the bench that
+                             runs the rungs and prints JSON records
+  profile_prove            — stage and device times of a prove
 
 It imports no JAX and nothing of `zukelang_tpu`: what it takes from the
 JAX package it keeps as its own copy.

@@ -229,7 +229,30 @@ class FieldOps:
 _OPS = {g: FieldOps(g, mont_mul_plain) for g in ("g1", "g2")}
 
 
+def _on_live(live: torch.Tensor, formula, ins, base):
+    """`formula(*ins)` lane by lane, computed only where `live`; the other
+    lanes take `base`, which holds the formula's own words there.  Most
+    lanes of the plain versions' bucket sums are infinity at test sizes,
+    and a formula costs the same on every lane."""
+    if bool(live.all()):
+        return formula(*ins)
+    idx = live.nonzero().squeeze(1)
+    out = [b.clone() for b in base]
+    if idx.numel():
+        got = formula(*(tuple(x[..., idx] for x in pt) for pt in ins))
+        for o_, g_ in zip(out, got):
+            o_[..., idx] = g_
+    return tuple(out)
+
+
 def _dbl(P, o: FieldOps):
+    """dbl-2009-l on the lanes whose words are not all zero; the doubling
+    of (0, 0, 0) is (0, 0, 0)."""
+    live = ~(o.is_zero(P[0]) & o.is_zero(P[1]) & o.is_zero(P[2]))
+    return _on_live(live, lambda p: _dbl_formula(p, o), (P,), P)
+
+
+def _dbl_formula(P, o: FieldOps):
     """dbl-2009-l (a = 0), the formula of `_double_body` (pallas :237)."""
     X, Y, Z = P
     A, B = o.mul_many([X, Y], [X, Y])
@@ -248,6 +271,15 @@ def _dbl(P, o: FieldOps):
 
 
 def _add(P, Q, o: FieldOps):
+    """add-2007-bl, its formula computed where both operands are finite:
+    the sum is P where Q is infinity, else Q where P is."""
+    q_inf = o.is_zero(Q[2])
+    live = ~o.is_zero(P[2]) & ~q_inf
+    base = tuple(o.sel(q_inf, a, b) for a, b in zip(P, Q))
+    return _on_live(live, lambda p, q: _add_formula(p, q, o), (P, Q), base)
+
+
+def _add_formula(P, Q, o: FieldOps):
     """add-2007-bl with every special case, the formula of
     `_point_add_kernel` (pallas :272)."""
     X1, Y1, Z1 = P
@@ -271,7 +303,7 @@ def _add(P, Q, o: FieldOps):
     q_inf = o.is_zero(Z2)
     same = o.is_zero(H) & o.is_zero(r) & ~p_inf & ~q_inf
     if bool(same.any()):
-        dX, dY, dZ = _dbl(P, o)
+        dX, dY, dZ = _dbl_formula(P, o)
         X3, Y3, Z3 = o.sel(same, dX, X3), o.sel(same, dY, Y3), o.sel(same, dZ, Z3)
     X3 = o.sel(q_inf, X1, o.sel(p_inf, X2, X3))
     Y3 = o.sel(q_inf, Y1, o.sel(p_inf, Y2, Y3))
@@ -280,6 +312,18 @@ def _add(P, Q, o: FieldOps):
 
 
 def _madd(P, Q, o: FieldOps):
+    """madd-2007-bl, its formula computed where both operands are finite:
+    the sum is P where Q is infinity, else (X2, Y2, 1) where P is; `same`
+    is false there."""
+    p_inf = o.is_zero(P[2])
+    q_inf = o.is_zero(Q[0]) & o.is_zero(Q[1])
+    live = ~p_inf & ~q_inf
+    base = (o.sel(q_inf, P[0], Q[0]), o.sel(q_inf, P[1], Q[1]),
+            o.sel(q_inf, P[2], o.one(P[2])), torch.zeros_like(live))
+    return _on_live(live, lambda p, q: _madd_formula(p, q, o), (P, Q), base)
+
+
+def _madd_formula(P, Q, o: FieldOps):
     """madd-2007-bl, the formula of `_madd_core` (pallas :567): Jacobian P
     plus affine Q ((0, 0) = infinity).  Returns (X3, Y3, Z3, same); lanes
     with P == Q (both finite) are garbage and flagged in `same`."""
