@@ -72,8 +72,24 @@ Phases (any failure raises and the script exits non-zero):
      timed.  Phases 4 and 8 print keygen_s, prove_first_s, prove_s,
      verify_s, msm_mterms_per_s, the launches of one prove and the peak
      memory of keygen and of a prove.
-Phases 4, 5 and 8 also print the launches of one prove.
-Each path of phases 4 to 8 starts from zeroed counts; every kernel of
+  9. the engine seam: (a) the reference suite's 13 programs through the
+     port's `run_pipeline` for Groth16, Pinocchio NonZK and ZK over a
+     `TorchEngine` on the card, on the NTT domain (every proof verifies,
+     the harness's Lang-vs-Code cross-check holds), and the frozen
+     x^3 + x + 3 vectors through the engine protocols, byte-equal to the
+     golden proofs; (b) Groth16 over a `TorchEngine` on the 2^16 bench
+     circuit written out as gates (keygen, one cold and three warm
+     proves, verify, injected scalars): keygen_s, prove_first_s, prove_s,
+     verify_s, the launches and peak memory of a prove and the host
+     seconds of the engine's packing and unpacking, beside
+     `prove_device`'s prove_s on the same circuit, whose proof bytes must
+     be equal; then K3's chain in keygen and the witness reduction's and
+     the first G1 MSM's kernel calls (K1, K2, K4-K7) against their plain
+     versions, K5, K6 and K7 above SAMPLE_ABOVE_CHUNKS chunks sampled.
+     Both paths must launch every kernel of a prove (K3 once a small
+     fixed-base batch) and neither K8 nor the looped probe.
+Phases 4, 5, 8 and 9 (b) also print the launches of one prove.
+Each path of phases 4 to 9 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
 add at most MAX_ADD_LAUNCHES times a prove.  Then one JSON
@@ -102,6 +118,7 @@ PIN_LOG_CONSTRAINTS = 14    # the JAX bench's pinocchio_prove_2^14
 WINDOW_LOG, WINDOW_C = 18, 14   # the JAX MSM profilers' window
 GOLDEN_LOG = 10             # the window route against golden G1.dot
 PROBE_LOG = 20              # the JAX looped-kernel probe's size
+ENGINE_LOG = 16             # phase 9: the bench headline over TorchEngine
 
 # kernel -> (its CUDA source, the Pallas entry point it replaces)
 REPLACES = {
@@ -141,13 +158,24 @@ MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # adds and the weighted-reduction adds of each group's batch.  At 2^20
 # (c = 16) the carry scan over each group's chunk tails and the weighted
 # reduction take one level more in each group than at 2^16.
-MAX_ADD_LAUNCHES = {"groth16_2^16": 15, "pinocchio": 15, "groth16_2^20": 19}
+# The engine's entry bounds the adds of its first G1 MSM (one batch: 7 on
+# the H100), which phase 9 (b) captures.
+MAX_ADD_LAUNCHES = {"groth16_2^16": 15, "pinocchio": 15, "groth16_2^20": 19,
+                    "engine_groth16_2^16": 8}
 # Above this many chunks a K5, K6 or K7 call of the 2^20 path is held
 # against its plain version on a sample of its block rows
 SAMPLE_ABOVE_CHUNKS = 8192
 WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
                   "point_madd", "mont_mul")
 PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
+# the engine paths (phase 9) run every kernel of a prove and keygen, and
+# neither the window program's K8 nor the probe
+ENGINE_PROTOCOLS = ("groth16", "pinocchio", "pinocchio_zk")
+NOT_ON_ENGINE_PATHS = ("bucket_scan", "mont_mul_looped")
+# injected trapdoor (alpha, beta, gamma, delta, tau) and prove scalars
+# (r, s) of phase 9 (b), shared by the engine and the device Groth16
+ENGINE_KEY = tuple(range(1000, 1005))
+ENGINE_PROVE = (77, 88)
 
 # The least time the card could take: bytes over the HBM rate, and limb
 # products over the integer rate.  NVIDIA's data sheet gives no 32-bit
@@ -768,19 +796,25 @@ def _check_launches(path: str, counts: dict, required,
                              f"{MAX_ADD_LAUNCHES[path]}")
 
 
-def _capture_prove(crs, fc, wm):
-    """One more Groth16 prove with the inputs of its kernel calls kept."""
+def _prove_targets():
+    """What `_capture_inputs` keeps of a prove: the kernel wrappers a
+    prove calls and the witness reduction."""
     from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
+    return ([(K, k) for k in ("digit_sort", "weighted_chunk_sums",
+                              "bucket_scan_rows", "point_double_n",
+                              "jac_scan", "point_add", "point_add_carry",
+                              "seg_scan_small", "mont_mul")]
+            + [(te, "run_witness_reduction")])
+
+
+def _capture_prove(crs, fc, wm):
+    """One more Groth16 prove with the inputs of its kernel calls kept."""
     from zukelang_tpu_torch.protocols import groth16_device as gd
     from zukelang_tpu_torch.rng import Gen
     return _capture_inputs(
         lambda: gd.prove_device(crs, fc, wm, Gen(b"bench-capture")),
-        [(K, k) for k in ("digit_sort", "weighted_chunk_sums",
-                          "bucket_scan_rows", "point_double_n", "jac_scan",
-                          "point_add", "point_add_carry", "seg_scan_small",
-                          "mont_mul")]
-        + [(te, "run_witness_reduction")])
+        _prove_targets())
 
 
 def groth16_path(dev, log_constraints: int, sample: bool = False):
@@ -893,9 +927,41 @@ def _wreduce_levels(nb: int) -> int:
     return levels
 
 
-def prove_path_kernel_checks(seen, path: str, sample: bool = False):
+def _check_captured_calls(seen, path: str, n_batches: int, groups) -> None:
+    """The calls `_capture_inputs` kept of n_batches MSM batches (one a
+    group) and one witness reduction: a K4 and a K5 call a batch, a K6
+    call and a doubling call a level of the weighted reduction (the last
+    doubling is the combine's), K7 on each of `groups`, some carry adds
+    and small scans, and at most MAX_ADD_LAUNCHES[path] K2 adds."""
+    from zukelang_tpu_torch.ops import kernels as K
+    sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
+    scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
+    jscans, wreds = seen["jac_scan"], seen["run_witness_reduction"]
+    levels = _wreduce_levels(sorts[0][0][1]) if sorts else 0
+    want = (n_batches, n_batches, n_batches * levels, n_batches * levels, 1)
+    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != want:
+        raise AssertionError(
+            f"{path}: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
+            f"K6, {len(dbls)} doubling calls and {len(wreds)} witness "
+            f"reductions, expected {want}")
+    if {K.group_of(a[0][0]) for a, _kw in jscans} != set(groups):
+        raise AssertionError(f"{path}: K7 did not scan {sorted(groups)}")
+    adds, carries = seen["point_add"], seen["point_add_carry"]
+    smalls = seen["seg_scan_small"]
+    n_adds = len(adds) + len(carries) + len(smalls)
+    if not carries or not smalls or n_adds > MAX_ADD_LAUNCHES[path]:
+        raise AssertionError(
+            f"{path}: {len(adds)} adds, {len(carries)} carry adds and "
+            f"{len(smalls)} small scans, expected some of each and at most "
+            f"{MAX_ADD_LAUNCHES[path]} in all")
+
+
+def prove_path_kernel_checks(seen, path: str, sample: bool = False,
+                             n_batches: int = 2, groups=("g1", "g2")):
     """The witness reduction, K1, K4, K5, K6, K7, K2's doubling and K2's
-    add against their plain versions on one Groth16 prove's own inputs:
+    add against their plain versions on one Groth16 prove's own inputs
+    (n_batches MSM batches over `groups`: the device prove's G1 and G2
+    batches, or the engine's witness reduction and first G1 MSM):
     the fused reduction's a, b and h; K1's conversions; the G1 and G2
     digit blocks, beside the stable `torch.sort`; K5 on both groups'
     blocks; every level of `_wreduce_batched` in each group; every carry
@@ -908,18 +974,11 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False):
     import torch
     from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
+    _check_captured_calls(seen, path, n_batches, groups)
     sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
     scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
     jscans, wreds = seen["jac_scan"], seen["run_witness_reduction"]
     levels = _wreduce_levels(sorts[0][0][1]) if sorts else 0
-    want = (2, 2, 2 * levels, 2 * levels, 1)
-    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != want:
-        raise AssertionError(
-            f"{path} prove: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
-            f"K6, {len(dbls)} doubling calls and {len(wreds)} witness "
-            f"reductions, expected {want}")
-    if {K.group_of(a[0][0]) for a, _kw in jscans} != {"g1", "g2"}:
-        raise AssertionError(f"{path} prove: K7 did not scan both groups")
     # block rows (MSMs x windows) of each group's batch
     rows_of = {group: idx.shape[0] for (_r, idx, _s, _k, group, _nb), _kw
                in scans}
@@ -1028,12 +1087,6 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False):
                _double_work(group, pts, counts), plain_reps=0)
     adds, carries = seen["point_add"], seen["point_add_carry"]
     smalls = seen["seg_scan_small"]
-    n_adds = len(adds) + len(carries) + len(smalls)
-    if not carries or not smalls or n_adds > MAX_ADD_LAUNCHES[path]:
-        raise AssertionError(
-            f"{path} prove: {len(adds)} adds, {len(carries)} carry adds and "
-            f"{len(smalls)} small scans, expected some of each and at most "
-            f"{MAX_ADD_LAUNCHES[path]} in all")
     for (pts, sg), _kw in smalls:
         group, n = K.group_of(pts[0]), pts[0].shape[-1]
         log(f"K2 seg_scan_small at the prove's inputs ({group}, {n} points, "
@@ -1261,6 +1314,188 @@ def probe_path(dev, logn: int):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the engine seam (TorchEngine under the protocol classes)
+# ---------------------------------------------------------------------------
+
+def _check_engine_launches(path: str, counts: dict) -> None:
+    """Every kernel of a prove launched on the path, K8 and the probe
+    not at all."""
+    _check_launches(path, counts, PROVE_KERNELS)
+    off = {k: counts[k] for k in NOT_ON_ENGINE_PATHS if counts[k]}
+    if off:
+        raise AssertionError(f"{path}: kernels of other paths launched: {off}")
+
+
+def engine_suite_path(dev):
+    """Phase 9 (a): the reference suite's 13 programs through the port's
+    `run_pipeline` (its Lang-vs-Code cross-check included) for Groth16,
+    Pinocchio NonZK and ZK over a `TorchEngine` on the card, on the NTT
+    domain; then the frozen x^3 + x + 3 vectors through the engine
+    protocols, byte-equal to the golden proofs."""
+    import torch
+    from zukelang_tpu_torch import vectors
+    from zukelang_tpu_torch.core.protocol import registry
+    from zukelang_tpu_torch.engine.torch_engine import TorchEngine
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+    from zukelang_tpu_torch.testing.harness import run_pipeline
+    from zukelang_tpu_torch.testing.suites import SUITE
+
+    t_phase = time.time()
+    msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
+    K.reset_counts()
+    for proto in ENGINE_PROTOCOLS:
+        t0 = time.time()
+        for name, mk in SUITE:
+            res = run_pipeline(mk(), registry()[proto](
+                engine=TorchEngine(dev)), seed=0, domain="ntt")
+            if not res.verified:
+                raise AssertionError(f"engine suite: {proto} {name} does not "
+                                     "verify")
+        log(f"  {proto}: {len(SUITE)} programs proved on the ntt domain and "
+            f"verified in {time.time() - t0:.2f} s")
+    vec = vectors.load()
+    for name, (got, ok) in vectors.engine_prove_all(vec, dev).items():
+        if got != vec.proofs[name] or not ok:
+            raise AssertionError(f"engine x^3+x+3: {name} proof differs from "
+                                 "the golden bytes or does not verify")
+        log(f"  x^3+x+3 {name} over the engine: proof bytes equal to the "
+            "golden ones, verified")
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    _check_engine_launches("engine suite", counts)
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, None
+
+
+def engine_groth16_path(dev, log_constraints: int):
+    """Phase 9 (b): Groth16 over a `TorchEngine` on the bench headline's
+    circuit (`make_synthetic_r1cs(log_constraints, seed=1)`, its rows as
+    gates over `flat.column_var`s, the QAP built directly on the NTT
+    domain with no v/w/y: neither keygen nor prove reads them there):
+    keygen, one cold and three warm proves, verify, under injected
+    scalars; the proof bytes against `groth16_device.prove_device` on the
+    same circuit and scalars; the host seconds of the engine's packing
+    and unpacking; then the witness reduction's and the first G1 MSM's
+    kernel calls, and K3's chain in keygen, against their plain
+    versions."""
+    import torch
+    from zukelang_tpu_torch import bench_lib
+    from zukelang_tpu_torch.core import flat, qap as qap_mod
+    from zukelang_tpu_torch.core.circuit import Circuit
+    from zukelang_tpu_torch.engine.torch_engine import TorchEngine
+    from zukelang_tpu_torch.golden.field import Fr
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+    from zukelang_tpu_torch.protocols import groth16_device as gd
+    from zukelang_tpu_torch.protocols.groth16 import Groth16
+    from zukelang_tpu_torch.rng import InjectedRng
+
+    def key():
+        return InjectedRng([Fr(k) for k in ENGINE_KEY])
+
+    def prove_rng():
+        return InjectedRng([Fr(k) for k in ENGINE_PROVE])
+
+    path = f"engine_groth16_2^{log_constraints}"
+    t_phase = time.time()
+    inst = bench_lib.make_synthetic_r1cs(log_constraints, seed=1)
+    var, V = flat.column_var, len(inst.fc.vars_sorted)
+    circuit = Circuit(flat.gates_of(inst.fc), inputs_public={var(0)},
+                      outputs={var(V - 1)},
+                      mids={var(int(c)) for c in inst.mids_cols})
+    n = inst.fc.domain_size
+    q = qap_mod.QAP(v={}, w={}, y={},
+                    target=[Fr(-1)] + [Fr(0)] * (n - 1) + [Fr(1)],
+                    domain="ntt", logn=inst.fc.logn, gates=circuit.gates)
+    sol = {var(c): Fr(w) for c, w in enumerate(inst.witness)}
+    public = {var(0): sol[var(0)], var(V - 1): sol[var(V - 1)]}
+    log(f"build_s {time.time() - t_phase:.3f}  ({len(circuit.gates)} gates "
+        f"over {V} variables, domain 2^{q.logn})")
+
+    msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
+    K.reset_counts()
+    eng = TorchEngine(dev)
+    proto = Groth16(eng)
+    st = bench_lib._Stages(dev, None)
+    keygen_seen = {}
+
+    def keygen():
+        keygen_seen.update(_capture_inputs(
+            lambda: keygen_seen.setdefault("keys", proto.keygen(
+                key(), circuit, q)),
+            [(K, "point_madd_chain"), (msm, "_fixed_base_madd")]))
+        return keygen_seen["keys"]
+
+    (pk, vk), keygen_s = st.run(keygen)
+    keygen_launches, keygen_peak, keygen_host = (st.launches, st.peak_mb,
+                                                 eng.host_s)
+    proof, prove_first_s = st.run(lambda: proto.prove(prove_rng(), q, pk,
+                                                      sol))
+    warm = []
+    for _ in range(3):
+        h0 = eng.host_s
+        proof, s = st.run(lambda: proto.prove(prove_rng(), q, pk, sol))
+        warm.append(s)
+        prove_host = eng.host_s - h0
+    per_prove, prove_peak = st.launches, st.peak_mb
+    ok, verify_s = st.run(lambda: proto.verify(public, vk, proof))
+    counts = dict(K.LAUNCHES)
+    log(f"keygen_s {keygen_s:.3f}  (host packing and unpacking "
+        f"{keygen_host:.3f} s; peak memory {keygen_peak} MB; launches "
+        f"{keygen_launches})")
+    log(f"prove_first_s {prove_first_s:.3f}")
+    log(f"prove_s {min(warm):.4f}  (warm runs {[round(t, 4) for t in warm]}; "
+        f"host packing and unpacking {prove_host:.3f} s of the last; peak "
+        f"memory of a prove {prove_peak} MB)")
+    log(f"verify_s {verify_s:.3f}  verified {ok}")
+    log(f"launches per prove: {per_prove}")
+    if not ok:
+        raise AssertionError(f"{path}: the proof does not verify")
+    _check_engine_launches(path, counts)
+    small = keygen_seen["_fixed_base_madd"]
+    if counts["point_madd"] != len(small) or not small:
+        raise AssertionError(f"{path}: {counts['point_madd']} K3 launches "
+                             f"for {len(small)} small fixed-base batches")
+
+    # the device Groth16 on the same circuit and scalars
+    crs, _dvk = gd.keygen_device(inst.fc, inst.mids_cols, inst.ios_cols,
+                                 key(), dev)
+    wm = inst.pack_witness(dev)
+    times = []
+    for _ in range(3):
+        dproof, s = st.run(lambda: gd.prove_device(crs, inst.fc, wm,
+                                                   prove_rng()))
+        times.append(s)
+    log(f"prove_device prove_s {min(times):.4f}  (warm runs "
+        f"{[round(t, 4) for t in times]}) beside the engine's "
+        f"{min(warm):.4f}")
+    same = all(getattr(proof, p).to_compressed_bytes()
+               == getattr(dproof, p).to_compressed_bytes() for p in "abc")
+    log(f"engine proof bytes equal to prove_device's: {same}")
+    if not same:
+        raise AssertionError(f"{path}: the engine's proof differs from "
+                             "prove_device's on the same circuit and scalars")
+
+    for (tab, steps, dig, cw), _kw in keygen_seen["point_madd_chain"]:
+        log(f"K3 point_madd_chain at the engine keygen's inputs "
+            f"({dig.shape[1]} lanes, {steps} windows of 2^{cw})")
+        record("point_madd", lambda: K.point_madd_chain(tab, steps, dig, cw),
+               lambda: K.point_madd_chain_plain(tab, steps, dig, cw),
+               _chain_work(K.group_of(tab[0]), tab, steps, dig, cw, None),
+               plain_reps=0)
+
+    def first_steps():
+        a, _b, _h = eng.qap_witness_reduction(q, sol)
+        eng.g1_apply_powers(a, pk.ti1)
+
+    prove_path_kernel_checks(_capture_inputs(first_steps, _prove_targets()),
+                             path, sample=True, n_batches=1, groups=("g1",))
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, per_prove
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1303,6 +1538,12 @@ def main() -> int:
     big = f"groth16_2^{BIG_LOG_CONSTRAINTS}"
     paths[big] = groth16_path(dev, BIG_LOG_CONSTRAINTS, sample=True)
     provers.append(big)
+    log("phase 9 (a): the engine seam, the suite over TorchEngine")
+    paths["engine_suite"] = engine_suite_path(dev)
+    log(f"phase 9 (b): groth16 over TorchEngine at 2^{ENGINE_LOG}")
+    eng16 = f"engine_groth16_2^{ENGINE_LOG}"
+    paths[eng16] = engine_groth16_path(dev, ENGINE_LOG)
+    provers.append(eng16)
 
     kernels = []
     for name in K.KERNELS:

@@ -2,10 +2,12 @@
 jax or anything of the JAX package (`zukelang_tpu`); a process with both
 blocked runs the frozen x^3 + x + 3 vectors through the port's Groth16
 and Pinocchio ZK on the CPU, byte-equal to the golden proofs;
-and chip_smoke.py refuses to run (non-zero exit, no result) where there
-is no CUDA device instead of falling back to the CPU, and so do the
-card's entry points `profile_msm`, `probe_looped`, `profile_kernels`,
-`profile_prove`, `bench` and `bench_rung`."""
+every module of the port imports with both blocked, and the CLI compiles
+a program; and chip_smoke.py refuses to run (non-zero exit, no result)
+where there is no CUDA device instead of falling back to the CPU, and so
+do the card's entry points `profile_msm`, `probe_looped`,
+`profile_kernels`, `profile_prove`, `bench` and `bench_rung`, and the
+CLI's `prove` on its default device."""
 
 import os
 import re
@@ -128,3 +130,44 @@ def test_card_entry_points_refuse_the_cpu(module, args):
     assert res.returncode != 0
     assert "needs a CUDA device" in res.stderr
     assert "{" not in res.stdout
+
+
+_BLOCK = ("import sys; sys.modules['jax'] = None; "
+          "sys.modules['zukelang_tpu'] = None; ")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = _BLOCK + (
+        "import importlib, pkgutil, zukelang_tpu_torch as p; "
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'zukelang_tpu_torch.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "print('IMPORTED', len(names))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert int(res.stdout.split("IMPORTED")[1]) >= 40
+
+
+def test_cli_compiles_with_jax_blocked_and_refuses_to_prove_without_cuda(
+        tmp_path):
+    prog = tmp_path / "prog.py"
+    prog.write_text("def prog():\n    x: int = secret('input')\n"
+                    "    return x * x * x + x + 3\n")
+
+    def cli(*argv):
+        code = _BLOCK + (
+            "import runpy; "
+            f"sys.argv = ['zukelang_tpu_torch'] + {list(argv)!r}; "
+            "runpy.run_module('zukelang_tpu_torch', run_name='__main__')")
+        return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              env=_env(), capture_output=True, text=True,
+                              timeout=300)
+
+    res = cli("compile", str(prog))
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "gates: 3" in res.stdout
+    res = cli("prove", str(prog), "--proof", str(tmp_path / "p.json"))
+    assert res.returncode != 0
+    assert "needs a CUDA device" in res.stderr
+    assert not (tmp_path / "p.json").exists()

@@ -15,9 +15,17 @@ Layering (bottom to top), each module named after its JAX counterpart:
   ops/kernels              — kernel wrappers, plain versions, launch counts
   ops/field, ops/curve     — field and curve arithmetic on limb tensors
   ops/ntt, ops/msm         — NTT, Pippenger and fixed-base MSM
-  core/flat                — flattened circuits (numpy packing)
-  engine/torch_engine      — witness reduction, keygen evaluation at tau
-  protocols/               — device Groth16 and Pinocchio, Pinocchio verify
+  core/                    — the DSL (lang), its compiler (comp), circuits,
+                             QAPs, polynomials; flat: flattened circuits
+  engine/                  — the Engine seam: GoldenEngine, and
+                             TorchEngine (witness reduction, evaluation at
+                             tau, dots, powers, fixed-base batches)
+  protocols/               — Groth16 and Pinocchio over an engine, batch
+                             verification, and the device-resident
+                             Groth16 and Pinocchio
+  testing/, frontend/      — the harness and the reference suite; the
+                             Python-syntax front end
+  __main__                 — the CLI (compile, prove, verify, bench, test)
   vectors                  — the frozen x^3+x+3 vectors (testdata/)
   bench_lib                — synthetic R1CS, the Groth16 and Pinocchio
                              bench runs

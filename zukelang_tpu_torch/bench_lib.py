@@ -193,10 +193,11 @@ def run_groth16(log_constraints: int, seed: int = 1, repeats: int = 3,
     the JAX package's `save_keypair`) is loaded in place of keygen, and a
     run that keygens writes it."""
     from .golden.field import Fr
+    from .engine.torch_engine import checked_device
     from .protocols import groth16_device as gd
     from .rng import Gen
 
-    device = gd._device(device)
+    device = checked_device(device)
     st = _Stages(device, progress)
     inst = _build(log_constraints, seed, st)
     fc = inst.fc
@@ -303,11 +304,11 @@ def run_pinocchio(log_constraints: int, seed: int = 1, repeats: int = 3,
     (8 G1 + 2 G2 MSMs with ZK), verify.  Runs on `device` (default: the
     card); raises if the proof does not verify."""
     from .golden.field import Fr
-    from .protocols import groth16_device as gd
+    from .engine.torch_engine import checked_device
     from .protocols import pinocchio_device as pd
     from .rng import Gen
 
-    device = gd._device(device)
+    device = checked_device(device)
     st = _Stages(device, progress)
     inst = _build(log_constraints, seed, st)
     fc = inst.fc

@@ -11,11 +11,12 @@ port's 32-bit limbs:
 
 Coefficients are Montgomery-form uint32 limb arrays, (8, ...) for Fr.
 
-Two ways in: `flatten(gates)` takes any gates with the fields of the JAX
-package's `core.circuit.Gate` (`lhs`, `l`, `r`, each an affine with a
-`.m` dict from variable to a coefficient carrying its int in `.n`) and
-orders them as that package does; `from_arrays` takes the dense rows as
-plain integer arrays, with the columns 0..V-1 as the variables.
+Two ways in: `flatten(gates)` takes any gates with the fields of
+`core.circuit.Gate` (`lhs`, `l`, `r`, each an affine with a `.m` dict
+from variable to a coefficient carrying its int in `.n`), this package's
+or the JAX package's, and orders them as `circuit.sort_gates` does;
+`from_arrays` takes the dense rows as plain integer arrays, with the
+columns 0..V-1 as the variables.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..golden.field import Fr
 from ..ops import field as F
 from ..params import FR
+from .circuit import ONE, Affine, Gate, gates_vars, sort_gates
+from .var import Var
 
 
 def pack_mont_np(values, spec=FR) -> np.ndarray:
@@ -106,33 +110,35 @@ def from_arrays(n_vars: int, logn: int, l, r, lhs) -> FlatCircuit:
                        l=sides[0], r=sides[1], lhs=sides[2])
 
 
-# ---------------------------------------------------------------------------
-# Gates: the JAX package's order, from the fields alone
-# ---------------------------------------------------------------------------
-
-def _affine_key(aff):
-    """The order of `core.circuit.Affine.key`: the sorted (var, coeff)
-    association list."""
-    return tuple((v.name, v.id, c.n) for v, c in sorted(aff.m.items()))
+def column_var(col: int):
+    """The variable of column `col` of a flat circuit made by
+    `from_arrays`: ONE at column 0, Var("w", col) elsewhere.  The map
+    keeps the columns' order (ONE sorts before every "w")."""
+    return ONE if col == 0 else Var("w", col)
 
 
-def _gate_key(g):
-    return (_affine_key(g.lhs), _affine_key(g.l), _affine_key(g.r))
+def gates_of(fc: FlatCircuit) -> List[Gate]:
+    """The rows of a flat circuit made by `from_arrays` as `Gate`s over
+    `column_var`s, row g the g-th gate.  Affine keys compare as the
+    columns do, so where the rows are distinct and in the reference's
+    gate order (`flatten`'s, or a chain whose lhs columns increase), the
+    sorted gates keep the rows' order and `flatten` gives `fc` back."""
+    V = len(fc.vars_sorted)
 
+    def affines(side: FlatSide):
+        G, K = side.idx.shape
+        coefs = F.unpack_mont(F._as_tensor(side.coef.reshape(FR.nl, G * K)),
+                              FR)
+        out = []
+        for g in range(G):
+            row = side.idx[g]
+            out.append(Affine({column_var(int(row[k])): Fr(coefs[g * K + k])
+                               for k in range(K) if row[k] != V}))
+        return out
 
-def sort_gates(gates) -> list:
-    """Distinct gates in the reference's Gate.Set order (QAP gate ids come
-    from this order)."""
-    unique = {_gate_key(g): g for g in gates}
-    return [unique[k] for k in sorted(unique)]
-
-
-def gates_vars(gates) -> set:
-    out = set()
-    for g in gates:
-        for aff in (g.lhs, g.l, g.r):
-            out |= set(aff.m)
-    return out
+    return [Gate(lhs, l, r) for lhs, l, r in zip(affines(fc.lhs),
+                                                  affines(fc.l),
+                                                  affines(fc.r))]
 
 
 def _rows(gates, pick, var_index, n_pad_col: int):

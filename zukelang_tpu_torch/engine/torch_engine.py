@@ -1,31 +1,51 @@
-"""Device pipelines of the prover and of keygen's evaluation at tau.
+"""The device engine: NTT-domain QAP algebra, Pippenger MSM and
+fixed-base batches on the card, behind the `Engine` seam.
 
-Counterpart of the device pipelines in `zukelang_tpu/engine/jax_engine.py`
-(`_gate_eval` :167, `witness_reduction_fn` / `run_witness_reduction`
-:180-224, `_lagrange_at` :239, `_segment_field_sum` and the transpose
-matvec :258-288).  The `Engine` class (`TorchEngine`) is later work.
+Counterpart of `zukelang_tpu/engine/jax_engine.py`: `TorchEngine` is
+`JaxEngine` (:52-149), and the device pipelines below are its back end
+and that of the device protocols (`_gate_eval` :167,
+`witness_reduction_fn` / `run_witness_reduction` :180-224,
+`_lagrange_at` :239, `_segment_field_sum` and the transpose matvec
+:258-288).
 
   * witness reduction (prove side): per-gate evaluation as a dense padded
     matvec -> iNTT -> coset pointwise ops -> h coefficients, in three
     transforms of the NTT kernel with the pointwise steps fused;
   * evaluation at tau (keygen side): Lagrange values L_g(tau) over the
     radix-2 domain, then a var-sorted transpose matvec via a segmented
-    log-depth scan.
+    log-depth scan;
+  * dots, powers and fixed-base batches: `ops/msm.py`, golden points
+    packed to limb batches on the host and the results unpacked.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import params
 from ..core import flat as flat_mod
+from ..core import poly
+from ..core.qap import QAP
+from ..golden.curve import G1, G2
+from ..golden.field import Fr
+from ..ops import curve as C
 from ..ops import field as F
+from ..ops import msm as msm_mod
 from ..ops import ntt as ntt_mod
 from ..params import FR
+from .base import Engine, GoldenEngine
+
+# MSM window width; None = size-based auto (`msm.auto_window`).
+DEFAULT_MSM_WINDOW = None
+# Fixed-base window width of the batches and powers (2^c table entries a
+# window): `JaxEngine`'s, the JAX `fixed_base_mul` default.  Its tables
+# build in seconds on the plain versions too (c = 16's take many minutes).
+DEFAULT_FB_WINDOW = 8
 
 
 def _reduce(step, logn: int, sides, w: torch.Tensor):
@@ -131,3 +151,146 @@ def transpose_matvec(side: flat_mod.FlatSide, weights: torch.Tensor,
     out = torch.zeros((FR.nl, n_vars), dtype=torch.int32, device=dev)
     out[:, t_var[is_tail]] = scanned[:, is_tail]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+def _unpack_fr(t: torch.Tensor) -> List[Fr]:
+    return [Fr(v) for v in F.unpack_mont(t, FR)]
+
+
+def checked_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless `device` names
+    another; raises where CUDA is asked for and missing."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device (pass device='cpu' for the "
+                           "kernels' plain versions)")
+    return dev
+
+
+class TorchEngine(Engine):
+    """`JaxEngine` on PyTorch tensors: on the card unless `device` names
+    another (the tests pass "cpu", which takes each kernel's plain
+    version).  `msm_window` pins the MSM window width (None: the module
+    default); fixed-base batches and powers take `DEFAULT_FB_WINDOW`.
+    `host_s` sums the host seconds spent packing golden points and
+    scalars into limb batches and unpacking the results."""
+
+    name = "torch"
+
+    def __init__(self, device=None, msm_window: int = None):
+        self.device = checked_device(device)
+        self.msm_window = (DEFAULT_MSM_WINDOW if msm_window is None
+                           else msm_window)
+        self.host_s = 0.0
+        self._flat_cache: Dict[int, Tuple[QAP, flat_mod.FlatCircuit]] = {}
+
+    # -- host packing and unpacking, timed ------------------------------------
+    def _host(self, fn, *args):
+        """fn(*args), its seconds added to `host_s`; the card is
+        synchronised first, so that its work is not counted."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.host_s += time.perf_counter() - t0
+        return out
+
+    def _unpack(self, group: str, p: C.Point, n: int = None) -> list:
+        """The first n points of a batch -> golden points."""
+        if n is not None:
+            p = tuple(x[..., :n] for x in p)
+        return self._host(C.unpack_g1 if group == "g1" else C.unpack_g2, p)
+
+    # -- MSM -------------------------------------------------------------------
+    def _dot(self, group: str, points, scalars):
+        if len(points) != len(scalars):
+            raise ValueError("dot: length mismatch")
+        n = len(points)
+        zero = G1.zero() if group == "g1" else G2.zero()
+        if n == 0:
+            return zero
+        npad = msm_mod.padded_width(n)
+        P = self._host(C.pack_affine, list(points) + [zero] * (npad - n),
+                       group, self.device)
+        S = self._host(F.pack, [s.n for s in scalars] + [0] * (npad - n), FR,
+                       self.device)
+        res = msm_mod.msm_staged_deferred(P, S, group, self.msm_window)()
+        return self._unpack(group, res)[0]
+
+    def g1_dot(self, points, scalars):
+        return self._dot("g1", points, scalars)
+
+    def g2_dot(self, points, scalars):
+        return self._dot("g2", points, scalars)
+
+    # -- fixed base ------------------------------------------------------------
+    def _of_fr_batch(self, group: str, scalars):
+        n = len(scalars)
+        if n == 0:
+            return []
+        npad = msm_mod.padded_width(n, msm_mod.FB_MIN_LOG)
+        S = self._host(F.pack, [s.n for s in scalars] + [0] * (npad - n), FR,
+                       self.device)
+        return self._unpack(group, msm_mod.fixed_base_mul(
+            S, group=group, c=DEFAULT_FB_WINDOW), n)
+
+    def g1_of_fr_batch(self, scalars):
+        return self._of_fr_batch("g1", scalars)
+
+    def g2_of_fr_batch(self, scalars):
+        return self._of_fr_batch("g2", scalars)
+
+    def _powers(self, group: str, d: int, s: Fr):
+        pts = msm_mod.g_powers(s.n, d, group, self.device,
+                                 DEFAULT_FB_WINDOW)
+        return self._unpack(group, pts)
+
+    def g1_powers(self, d, s):
+        return self._powers("g1", d, s)
+
+    def g2_powers(self, d, s):
+        return self._powers("g2", d, s)
+
+    # -- QAP algebra -----------------------------------------------------------
+    def _flat(self, qap: QAP) -> flat_mod.FlatCircuit:
+        """The QAP's gates flattened once; the entry keeps the QAP alive,
+        so its id is not reused while cached."""
+        hit = self._flat_cache.get(id(qap))
+        if hit is None or hit[0] is not qap:
+            hit = (qap, flat_mod.flatten(qap.gates))
+            self._flat_cache[id(qap)] = hit
+        return hit[1]
+
+    def qap_witness_reduction(self, qap: QAP, sol):
+        """-> (A, B, h) coefficient lists, normalised as `GoldenEngine`'s.
+        The reference domain has no NTT: there the golden engine computes
+        it, as in the JAX package."""
+        if qap.domain != "ntt":
+            return GoldenEngine().qap_witness_reduction(qap, sol)
+        fc = self._flat(qap)
+        w = self._host(fc.pack_witness, sol, self.device)
+        a, b, h = run_witness_reduction(fc, w)
+        return tuple(poly.normalize(self._host(_unpack_fr, x))
+                     for x in (a, b, h))
+
+    def qap_eval_at(self, qap: QAP, x: Fr):
+        """Every variable's v / w / y polynomial at x: three dicts Var ->
+        Fr (Lagrange values at x and a transpose matvec on the device)."""
+        if qap.domain != "ntt":
+            return GoldenEngine().qap_eval_at(qap, x)
+        fc = self._flat(qap)
+        lag = _lagrange_at(fc.logn, x.n, self.device)
+        nv = len(fc.vars_sorted)
+        return tuple(
+            dict(zip(fc.vars_sorted,
+                     self._host(_unpack_fr, transpose_matvec(side, lag, nv))))
+            for side in (fc.l, fc.r, fc.lhs))
+
+    def qap_eval(self, qap, sol):
+        # p is not materialised on the device path (`JaxEngine.qap_eval`)
+        _a, _b, h = self.qap_witness_reduction(qap, sol)
+        return None, h

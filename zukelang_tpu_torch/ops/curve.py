@@ -9,7 +9,8 @@ affine batch is (X, Y) with (0, 0) marking infinity.
 one launch) are kernel K2, `point_madd` is K3 with a K2 fix-up
 (`ops.kernels`; the paths take K3's chain, `kernels.point_madd_chain`,
 and `point_madd` stays as the reference the tests hold the chain to).
-The other functions compose field operations, whose products are K1.
+`tree_sum` reduces a batch with K2's add.  The other functions compose
+field operations, whose products are K1.
 """
 
 from __future__ import annotations
@@ -92,6 +93,23 @@ def to_affine(p: Point) -> AffinePoint:
     return o.sel(inf, zero, Xa), o.sel(inf, zero, Ya)
 
 
+def tree_sum(p: Point) -> Point:
+    """Reduce a batch of N points to one (a batch of width 1): pairwise K2
+    adds, an odd width padded with infinity (`curve_jax.tree_sum`)."""
+    n = p[0].shape[-1]
+    group = K.group_of(p[0])
+    while n > 1:
+        if n % 2:
+            inf = infinity(group, 1, p[0].device)
+            p = tuple(torch.cat([x, y], dim=-1) for x, y in zip(p, inf))
+            n += 1
+        h = n // 2
+        p = point_add(tuple(x[..., :h].contiguous() for x in p),
+                      tuple(x[..., h:].contiguous() for x in p))
+        n = h
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Host <-> device conversion (golden points <-> limb batches)
 # ---------------------------------------------------------------------------
@@ -118,6 +136,20 @@ def pack_g2(points, device=None) -> Point:
             c.append(v)
     packed = [F.pack_mont(c, FQ, device) for c in cols]
     return tuple(torch.stack(packed[2 * i:2 * i + 2]) for i in range(3))
+
+
+def pack_affine(points, group: str, device=None) -> AffinePoint:
+    """Golden points of `group` -> Montgomery affine batch (X, Y), (0, 0)
+    where a point is infinity: the form the MSM tables take."""
+    if group == "g1":
+        cols = [[0, 0] if pt.is_zero() else [pt.x.n, pt.y.n]
+                for pt in points]
+        return tuple(F.pack_mont([c[i] for c in cols], FQ, device)
+                     for i in range(2))
+    cols = [[0, 0, 0, 0] if pt.is_zero() else
+            [pt.x.c0.n, pt.x.c1.n, pt.y.c0.n, pt.y.c1.n] for pt in points]
+    packed = [F.pack_mont([c[i] for c in cols], FQ, device) for i in range(4)]
+    return torch.stack(packed[:2]), torch.stack(packed[2:])
 
 
 def unpack_g1(p: Point):

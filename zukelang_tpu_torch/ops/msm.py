@@ -12,7 +12,8 @@ Counterpart of `zukelang_tpu/ops/msm.py`:
     (one K2 chained-doubling launch, then one K2 small scan or K7).
   * `fixed_base_mul`: batched g*s from a window table of multiples of the
     generator (built with K7), summed by K5 (one segment per element) from
-    128 elements, by one K3 chain launch of the window loop below.
+    128 elements, by one K3 chain launch of the window loop below;
+    `g_powers` is the powers of one scalar as such a batch.
 
   * `window_program`: the JAX package's per-window program
     (`_jit_window`), the route of its MSM profilers.  Affine bases take
@@ -516,6 +517,18 @@ def _combine_windows(stacked: C.Point, c: int, n_windows: int,
     return tuple(v[..., n_windows - 1::n_windows] for v in sc)
 
 
+# Padded widths: MSMs take at least two scan chunks of CHUNK (every MSM
+# takes the v2 path); fixed-base batches pad as the JAX package does, to
+# at least 16 (`_fixed_base_std`).
+MSM_MIN_LOG = 6
+FB_MIN_LOG = 4
+
+
+def padded_width(n: int, min_log: int = MSM_MIN_LOG) -> int:
+    """A power of two, at least n and 2^min_log."""
+    return 1 << max(min_log, (n - 1).bit_length())
+
+
 def _check_width(n: int) -> None:
     if n % CHUNK or n < 2 * CHUNK:
         raise ValueError(f"MSM width {n} must be a multiple of {CHUNK} and "
@@ -738,3 +751,18 @@ def _fixed_base_rows(tX, tY, digits: torch.Tensor, c: int,
     idx = (digits.t() + offs[None, :]).contiguous()       # (m, W)
     tails, _, _ = kern.bucket_scan_rows(rows, idx, None, W, group)
     return tuple(_to_curve(v, group) for v in tails)
+
+
+def powers_of(s: int, d: int, device=None) -> torch.Tensor:
+    """[s^0..s^d] standard form, packed (8, d+1); host-side (d modmuls)."""
+    out, acc = [], 1
+    for _ in range(d + 1):
+        out.append(acc)
+        acc = acc * s % FR.p
+    return F.pack(out, FR, device)
+
+
+def g_powers(s: int, d: int, group: str = "g1", device=None,
+             c: int = 8) -> C.Point:
+    """{g^(s^i)}_{i in [0..d]} (curve.ml:106-109) as one fixed-base batch."""
+    return fixed_base_mul(powers_of(s, d, device), group=group, c=c)

@@ -33,14 +33,7 @@ from ..ops import field as F
 from ..ops import msm as msm_mod
 from ..pairing import pairing
 from ..params import FR
-
-
-@dataclass
-class Proof:
-    """groth16.ml:110-114: A in G1, B in G2, C in G1."""
-    a: G1
-    b: G2
-    c: G1
+from .groth16 import Proof
 
 
 @dataclass
@@ -79,23 +72,6 @@ DEFAULT_FB_WINDOW = 16
 _CRS_POINTS = ("ti1", "ti2", "ltd_mid", "tiztd")
 
 
-def _np2(n: int, min_log: int = 6) -> int:
-    """Padded width: a power of two, at least 2^min_log.  MSMs take the
-    default 64 (two scan chunks of 32, so every MSM takes the v2 path);
-    fixed-base batches pad as the JAX package does, to at least 16
-    (`_fixed_base_std`)."""
-    return 1 << max(min_log, (n - 1).bit_length())
-
-
-FB_MIN_LOG = 4   # fixed-base batches: at least 16 elements
-
-
-def _device(device) -> torch.device:
-    """Where an entry point runs: the card unless the caller names
-    another device (the tests pass "cpu")."""
-    return torch.device("cuda" if device is None else device)
-
-
 def _pad_scalars(s: torch.Tensor, n: int) -> torch.Tensor:
     cur = s.shape[1]
     return torch.nn.functional.pad(s, (0, n - cur)) if cur < n else s[:, :n]
@@ -112,20 +88,21 @@ def _fit_points(p: C.AffinePoint, n: int) -> C.AffinePoint:
 def _msm_device_deferred(points: C.AffinePoint, scalars_mont: torch.Tensor,
                          group: str, c: int = None):
     """One MSM sized by its scalar count; returns resolve() -> point."""
-    n = _np2(scalars_mont.shape[1])
+    n = msm_mod.padded_width(scalars_mont.shape[1])
     S = F.from_mont(_pad_scalars(scalars_mont, n), FR)
     return msm_mod.msm_staged_deferred(_fit_points(points, n), S,
                                        group=group, c=c)
 
 
 def _fixed_base_std(scalars, group: str, device) -> C.Point:
-    n = _np2(len(scalars), FB_MIN_LOG)
+    n = msm_mod.padded_width(len(scalars), msm_mod.FB_MIN_LOG)
     S = F.pack(list(scalars) + [0] * (n - len(scalars)), FR, device)
     return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
 
 
 def _fixed_base_mont(scalars_mont: torch.Tensor, group: str) -> C.Point:
-    n = _np2(scalars_mont.shape[1], FB_MIN_LOG)
+    n = msm_mod.padded_width(scalars_mont.shape[1],
+                             msm_mod.FB_MIN_LOG)
     S = F.from_mont(_pad_scalars(scalars_mont, n), FR)
     return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
 
@@ -146,7 +123,7 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
     """Groth16 setup on `device` (default: the card).  mids/ios are the
     circuit partition; the trapdoor is drawn as alpha, beta, gamma,
     delta, tau."""
-    device = _device(device)
+    device = te.checked_device(device)
     alpha, beta, gamma, delta, tau = (rng.fr() for _ in range(5))
     n = fc.domain_size
     r = params.R
@@ -210,7 +187,7 @@ def prove_device(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
     a_comb, b_comb, h = te.run_witness_reduction(fc, witness_mont)
 
     n = crs.n
-    npad = _np2(n)
+    npad = msm_mod.padded_width(n)
     c_w = DEFAULT_MSM_WINDOW
     mids = torch.from_numpy(crs.mids_idx.astype(np.int64)).to(
         witness_mont.device)
@@ -257,7 +234,7 @@ def host_point(p):
 def crs_from_jax(jcrs, device=None) -> DeviceCRS:
     """A JAX-package DeviceCRS (its arrays read as numpy, its host points
     through their bytes) -> this port's, on `device` (default: the card)."""
-    device = _device(device)
+    device = te.checked_device(device)
     pts = {name: C.from_jax(tuple(np.asarray(x) for x in getattr(jcrs, name)),
                             device) for name in _CRS_POINTS}
     return DeviceCRS(
@@ -300,7 +277,7 @@ def load_crs(path: str, fc: flat_mod.FlatCircuit, device=None) -> DeviceCRS:
     """Read a keypair file's proving key onto `device` (default: the
     card), checked against the circuit: its domain size and witness
     columns must match `fc`."""
-    device = _device(device)
+    device = te.checked_device(device)
     with np.load(path) as z:
         n = int(z["n"][0])
         if n != fc.domain_size:

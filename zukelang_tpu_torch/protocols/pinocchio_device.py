@@ -97,7 +97,7 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
                   rng, device=None) -> Tuple[DevicePKey, VKey]:
     """Pinocchio KeyGen (pinocchio.ml:77-189) on `device` (default: the
     card)."""
-    device = gd._device(device)
+    device = te.checked_device(device)
     rv, rw, s, av, aw, ay, b, gm = (rng.fr() for _ in range(8))
     ry = rv * rw
 
@@ -123,7 +123,7 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
 
     # the all-variable tables hold the MSM family's width on the device;
     # the variables beyond it become host tails
-    n_main = min(V, gd._np2(max(n, len(mids_idx))))
+    n_main = min(V, msm_mod.padded_width(max(n, len(mids_idx))))
     ti, acc = [], 1
     for _ in range(n):      # s^0..s^(n-1); s^n enters only through t1
         ti.append(acc)
@@ -185,8 +185,8 @@ def prove_device(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
     n_main = V - len(pkey.v_all_tail)
     c_mid = witness_mont[:, torch.from_numpy(pkey.mids_idx).to(dev)]
     c_all = witness_mont[:, :n_main]
-    npad = gd._np2(max(pkey.si[0].shape[-1], c_mid.shape[-1],
-                       n_main if zk else 1))
+    npad = msm_mod.padded_width(max(pkey.si[0].shape[-1], c_mid.shape[-1],
+                                    n_main if zk else 1))
 
     def pts(p):
         return gd._fit_points(p, npad)
@@ -239,7 +239,7 @@ def prove_device(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
 def pkey_from_jax(jpk, device=None) -> DevicePKey:
     """A JAX-package DevicePKey (its arrays read as numpy, its host points
     through their bytes) -> this port's, on `device` (default: the card)."""
-    device = gd._device(device)
+    device = te.checked_device(device)
     batches = {name: C.from_jax(tuple(np.asarray(x) for x in
                                       getattr(jpk, name)[:2]), device)
                for name in _BATCHES}

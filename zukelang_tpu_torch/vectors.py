@@ -7,6 +7,8 @@ Pinocchio NonZK and Pinocchio ZK under those scalars.
 tests/test_torch_vectors.py rebuilds the file from the JAX package's
 compiler and golden protocols and fails if it differs, so it cannot drift
 from the reference; the port and `chip_smoke.py` read only the file.
+`prove_all` proves them through the device protocols, `engine_prove_all`
+through the protocol classes over a `TorchEngine`.
 """
 
 from __future__ import annotations
@@ -16,11 +18,14 @@ import os
 from dataclasses import dataclass
 from typing import Dict, List
 
-from .core import flat
+from .core import flat, qap as qap_mod
+from .core.circuit import Circuit
+from .engine.torch_engine import TorchEngine, checked_device
 from .golden.field import Fr
 from .protocols import groth16_device as gd
 from .protocols import pinocchio_device as pd
-from .protocols.pinocchio import PROOF_FIELDS
+from .protocols.groth16 import Groth16
+from .protocols.pinocchio import PROOF_FIELDS, Pinocchio
 from .rng import InjectedRng
 
 PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "testdata",
@@ -66,7 +71,7 @@ def prove_all(vec: Vectors, device=None) -> Dict[str, tuple]:
     """Keygen, prove and verify of every protocol on the vectors through
     the port, on `device` (default: the card).  Returns protocol ->
     (proof bytes as `proof_hex`, verified)."""
-    fc, wm = vec.fc, flat.pack_witness_values(vec.witness, gd._device(device))
+    fc, wm = vec.fc, flat.pack_witness_values(vec.witness, checked_device(device))
 
     def rng(use):
         return InjectedRng(vec.scalars[use])
@@ -82,4 +87,35 @@ def prove_all(vec: Vectors, device=None) -> Dict[str, tuple]:
     for name, zk in (("pinocchio", False), ("pinocchio_zk", True)):
         proof = pd.prove_device(pk, fc, wm, rng("pinocchio_prove"), zk=zk)
         out[name] = (proof_hex(proof, name), pd.verify(vec.public(), pvk, proof))
+    return out
+
+
+def engine_prove_all(vec: Vectors, device=None) -> Dict[str, tuple]:
+    """`prove_all` through `Groth16` and `Pinocchio` over a `TorchEngine`
+    on `device` (default: the card): the circuit's rows as gates over
+    `flat.column_var`s (the same gate order, so the same QAP on the NTT
+    domain), the ios public."""
+    var = flat.column_var
+    gates = flat.gates_of(vec.fc)
+    circuit = Circuit(gates, inputs_public={var(c) for c in vec.ios},
+                      outputs=set(), mids={var(c) for c in vec.mids})
+    q = qap_mod.build(gates, domain="ntt")
+    sol = {var(c): Fr(w) for c, w in enumerate(vec.witness)}
+    public = {var(c): sol[var(c)] for c in vec.ios}
+    eng = TorchEngine(device)
+
+    def rng(use):
+        return InjectedRng(vec.scalars[use])
+
+    out = {}
+    proto = Groth16(eng)
+    pk, vk = proto.keygen(rng("groth16_keygen"), circuit, q)
+    proof = proto.prove(rng("groth16_prove"), q, pk, sol)
+    out["groth16"] = (proof_hex(proof, "groth16"),
+                      proto.verify(public, vk, proof))
+    pk, vk = Pinocchio(eng).keygen(rng("pinocchio_keygen"), circuit, q)
+    for name, zk in (("pinocchio", False), ("pinocchio_zk", True)):
+        proto = Pinocchio(eng, zk=zk)
+        proof = proto.prove(rng("pinocchio_prove"), q, pk, sol)
+        out[name] = (proof_hex(proof, name), proto.verify(public, vk, proof))
     return out
