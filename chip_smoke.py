@@ -88,6 +88,30 @@ Phases (any failure raises and the script exits non-zero):
      versions, K5, K6 and K7 above SAMPLE_ABOVE_CHUNKS chunks sampled.
      Both paths must launch every kernel of a prove (K3 once a small
      fixed-base batch) and neither K8 nor the looped probe.
+ 10. the rest of the single-card port: (a) the levelized witness
+     evaluator (`core/witness.py`) on a synthetic program of 4,096 lanes
+     x 16 levels (65,536 steps over 4,096 secret inputs and ONE; every
+     kind, a quarter of the lanes dividing by zero in an untaken `if`
+     branch): compile_s, eval_host_s, `eval_device` cold and three warm
+     runs split into pack / levels / unpack, each equal to eval_host; K1's
+     launches and seconds a run, the div level's (the Fermat inverse)
+     apart; K1
+     against its plain version on the div level's products (every one)
+     and a mul level's; eval_host against eval_device at 32 to 4,096
+     lanes (the crossover); (b) the suite's 13 programs through
+     `eval_device` against `comp.code_eval_list`, 1/0 raising and the Or
+     gadget's untaken division not; (c) the FFT API at 2^16:
+     `polynomial_mul_fr` of two 32,768-coefficient polynomials against
+     the host library's route (`native.fr_ntt`, `fr_mul_batch`), the
+     `fft_fr` / `ifft_fr` round trip, the NTT kernel's calls and K1's
+     against their plain versions, `fft_c` against numpy; (d)
+     `bench_msm.main` at 2^18 at the auto window and at c = 14, Jacobian
+     and affine bases, all equal and equal to `native.g1_msm`, then at
+     2^10 against golden `G1.dot`; every kernel call of one Jacobian and
+     one affine MSM at 2^18 against its plain version (K5 above
+     SAMPLE_ABOVE_CHUNKS chunks on sampled block rows).  (a) and (b) must
+     launch K1, (c) the NTT kernel and K1, (d) K2's add and doubling, K7,
+     K6, K4 and K5; none of them K8 or the looped probe.
 Phases 4, 5, 8 and 9 (b) also print the launches of one prove.
 Each path of phases 4 to 9 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
@@ -119,6 +143,13 @@ WINDOW_LOG, WINDOW_C = 18, 14   # the JAX MSM profilers' window
 GOLDEN_LOG = 10             # the window route against golden G1.dot
 PROBE_LOG = 20              # the JAX looped-kernel probe's size
 ENGINE_LOG = 16             # phase 9: the bench headline over TorchEngine
+# phase 10: the witness program at the bench headline's scale (65,536
+# steps), the lanes of the eval_host / eval_device sweep (x 16 levels),
+# the FFT's size and bench_msm's (the JAX script's default) and window
+WITNESS_LANES, WITNESS_LEVELS = 4096, 16
+WITNESS_SWEEP = tuple(1 << k for k in range(5, 13))
+FFT_LOG = 16
+MSM_BENCH_LOG, MSM_BENCH_C = 18, 14
 
 # kernel -> (its CUDA source, the Pallas entry point it replaces)
 REPLACES = {
@@ -168,10 +199,18 @@ SAMPLE_ABOVE_CHUNKS = 8192
 WINDOW_KERNELS = ("digit_sort", "bucket_scan", "jac_scan", "point_add",
                   "point_madd", "mont_mul")
 PROBE_KERNELS = ("mont_mul_looped", "mont_mul")
-# the engine paths (phase 9) run every kernel of a prove and keygen, and
-# neither the window program's K8 nor the probe
+# the engine paths (phase 9) run every kernel of a prove and keygen; they
+# and the paths of phase 10 launch neither the window program's K8 nor
+# the probe
 ENGINE_PROTOCOLS = ("groth16", "pinocchio", "pinocchio_zk")
-NOT_ON_ENGINE_PATHS = ("bucket_scan", "mont_mul_looped")
+OFF_PATH_KERNELS = ("bucket_scan", "mont_mul_looped")
+# the kernels each path of phase 10 must launch
+SLICE_KERNELS = {
+    "witness": ("mont_mul",), "fft": ("ntt", "mont_mul"),
+    "bench_msm": ("point_add", "point_double", "jac_scan",
+                  "weighted_chunk_sums", "digit_sort", "bucket_scan_rows")}
+# tolerance of the complex FFT (complex128) against numpy's
+FFT_C_ATOL = 1e-9
 # injected trapdoor (alpha, beta, gamma, delta, tau) and prove scalars
 # (r, s) of phase 9 (b), shared by the engine and the device Groth16
 ENGINE_KEY = tuple(range(1000, 1005))
@@ -283,11 +322,13 @@ def _wsum_work(group, P, K):
 RESULTS = {}
 
 
-def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
+def record(name, kern, plain, work, reps=20, plain_reps=2, library=None,
+           echo=True):
     """Hold a kernel call against its plain version, time both (and the
     library call; `timing.time_ms`, mean of `reps` after a warm-up; the
     plain version with plain_reps=0 by the host clock around the call that
-    was checked), and keep the row.  work(got) -> (bytes, operations)."""
+    was checked), and keep the row (logged unless `echo` is False).
+    work(got) -> (bytes, operations)."""
     import torch
     from zukelang_tpu_torch.timing import time_ms
     dev = torch.device("cuda:0")
@@ -307,9 +348,10 @@ def record(name, kern, plain, work, reps=20, plain_reps=2, library=None):
     RESULTS.setdefault(name, []).append(dict(
         err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=lib_ms))
-    log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  plain "
-        f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
-        + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    if echo or err != 0:
+        log(f"  {name}: max_abs_err {err}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with plain")
 
@@ -1318,11 +1360,11 @@ def probe_path(dev, logn: int):
 # Phase 9: the engine seam (TorchEngine under the protocol classes)
 # ---------------------------------------------------------------------------
 
-def _check_engine_launches(path: str, counts: dict) -> None:
-    """Every kernel of a prove launched on the path, K8 and the probe
+def _check_path_launches(path: str, counts: dict, required) -> None:
+    """Every kernel of `required` launched on the path, K8 and the probe
     not at all."""
-    _check_launches(path, counts, PROVE_KERNELS)
-    off = {k: counts[k] for k in NOT_ON_ENGINE_PATHS if counts[k]}
+    _check_launches(path, counts, required)
+    off = {k: counts[k] for k in OFF_PATH_KERNELS if counts[k]}
     if off:
         raise AssertionError(f"{path}: kernels of other paths launched: {off}")
 
@@ -1364,7 +1406,7 @@ def engine_suite_path(dev):
             "golden ones, verified")
     torch.cuda.synchronize()
     counts = dict(K.LAUNCHES)
-    _check_engine_launches("engine suite", counts)
+    _check_path_launches("engine suite", counts, PROVE_KERNELS)
     log(f"phase wall {time.time() - t_phase:.1f} s")
     return counts, None
 
@@ -1453,7 +1495,7 @@ def engine_groth16_path(dev, log_constraints: int):
     log(f"launches per prove: {per_prove}")
     if not ok:
         raise AssertionError(f"{path}: the proof does not verify")
-    _check_engine_launches(path, counts)
+    _check_path_launches(path, counts, PROVE_KERNELS)
     small = keygen_seen["_fixed_base_madd"]
     if counts["point_madd"] != len(small) or not small:
         raise AssertionError(f"{path}: {counts['point_madd']} K3 launches "
@@ -1494,6 +1536,500 @@ def engine_groth16_path(dev, log_constraints: int):
                              path, sample=True, n_batches=1, groups=("g1",))
     log(f"phase wall {time.time() - t_phase:.1f} s")
     return counts, per_prove
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the witness evaluator, the FFT API and bench_msm
+# ---------------------------------------------------------------------------
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _eval_device_split(witness, prog, env, dev):
+    """`eval_device`'s three steps, each on the host clock with the card
+    synchronised at its end: -> (env, pack_s, levels_s, unpack_s)."""
+    t0 = time.perf_counter()
+    vals, pois = witness._device_inputs(prog, env, dev)
+    _sync()
+    t1 = time.perf_counter()
+    witness._run_levels(prog, vals, pois)
+    _sync()
+    t2 = time.perf_counter()
+    got = witness._device_finish(prog, env, vals, pois)
+    return got, t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def _traced_levels(witness, K, prog, env, dev):
+    """One more `eval_device` with K1's launches counted and the host
+    seconds taken (the card synchronised before and after) per level and
+    kind, and the products' operands kept: -> (env, [(kind, launches,
+    seconds)], {(op index, kind): [(a, b, spec)]})."""
+    per_op, calls, current = [], {}, {}
+    orig_level, orig_mul = witness._level, K.mont_mul
+
+    def level(vals, pois, op, one, zero):
+        current["op"] = (len(per_op), op.kind)
+        before = K.LAUNCHES["mont_mul"]
+        _sync()
+        t0 = time.perf_counter()
+        out = orig_level(vals, pois, op, one, zero)
+        _sync()
+        per_op.append((op.kind, K.LAUNCHES["mont_mul"] - before,
+                       time.perf_counter() - t0))
+        return out
+
+    def mont_mul(a, b, spec):
+        calls.setdefault(current["op"], []).append((a, b, spec))
+        return orig_mul(a, b, spec)
+
+    witness._level, K.mont_mul = level, mont_mul
+    try:
+        got = witness.eval_device(prog, env, dev)
+    finally:
+        witness._level, K.mont_mul = orig_level, orig_mul
+    return got, per_op, calls
+
+
+def _witness_sweep(dev):
+    """eval_host against eval_device (the minimum of three warm runs each,
+    host clock; the device's result comes back to the host) on the wide
+    program at each WITNESS_SWEEP lane count; -> the least lanes from
+    which eval_device is the faster, or None."""
+    from zukelang_tpu_torch.core import witness
+    from zukelang_tpu_torch.testing.witness_programs import wide_program
+    crossover = None
+    for lanes in WITNESS_SWEEP:
+        codes, env = wide_program(lanes, WITNESS_LEVELS, seed=lanes)
+        prog = witness.compile_witness_program(codes, list(env))
+        want = witness.eval_host(prog, env)
+        if witness.eval_device(prog, env, dev) != want:
+            raise AssertionError(f"witness sweep: eval_device differs from "
+                                 f"eval_host at {lanes} lanes")
+        times = {}
+        for name, fn in (("eval_host", lambda: witness.eval_host(prog, env)),
+                         ("eval_device", lambda: witness.eval_device(
+                             prog, env, dev))):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                runs.append(time.perf_counter() - t0)
+            times[name] = min(runs)
+        faster = times["eval_device"] < times["eval_host"]
+        if faster and crossover is None:
+            crossover = lanes
+        elif not faster:
+            crossover = None
+        log(f"  {lanes} lanes x {WITNESS_LEVELS} levels ({prog.n_steps} "
+            f"steps): eval_host_s {times['eval_host']:.5f}  eval_device_s "
+            f"{times['eval_device']:.5f}  "
+            f"({'eval_device' if faster else 'eval_host'} faster)")
+    log(f"eval_device faster from {crossover} lanes on"
+        if crossover else "eval_device never faster in the sweep")
+    return crossover
+
+
+def witness_wide_path(dev):
+    """Phase 10 (a): the synthetic wide program (`testing/
+    witness_programs.wide_program`, WITNESS_LANES lanes x WITNESS_LEVELS
+    levels over as many secret inputs and ONE, a quarter of its lanes
+    dividing by zero in an untaken branch) through `eval_device` on the
+    card, cold then three warm runs split into pack / levels / unpack,
+    each equal to `eval_host`; K1's launches and seconds a run, the `div`
+    level's apart; K1 against its plain version on the div level's own products
+    (every call; the first and the last timed) and one mul level's; then
+    the crossover sweep."""
+    from zukelang_tpu_torch.core import witness
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.testing.witness_programs import wide_program
+
+    t_phase = time.time()
+    codes, env = wide_program(WITNESS_LANES, WITNESS_LEVELS, seed=10)
+    t0 = time.time()
+    prog = witness.compile_witness_program(codes, list(env))
+    compile_s = time.time() - t0
+    t0 = time.time()
+    want = witness.eval_host(prog, env)
+    eval_host_s = time.time() - t0
+    log(f"program: {prog.n_steps} steps in {len(prog.levels)} levels over "
+        f"{len(env)} inputs (ONE included): "
+        f"{[lv[0].kind for lv in prog.levels]}")
+    log(f"compile_s {compile_s:.3f}  eval_host_s {eval_host_s:.4f}")
+
+    K.reset_counts()
+    _sync()
+    t0 = time.perf_counter()
+    if witness.eval_device(prog, env, dev) != want:
+        raise AssertionError("witness: eval_device differs from eval_host")
+    log(f"eval_device_s cold {time.perf_counter() - t0:.4f} (the plan built "
+        "and copied to the card)")
+    for i in range(3):
+        got, pack_s, levels_s, unpack_s = _eval_device_split(witness, prog,
+                                                             env, dev)
+        if got != want:
+            raise AssertionError("witness: eval_device differs from "
+                                 "eval_host")
+        log(f"eval_device_s warm {pack_s + levels_s + unpack_s:.4f}: pack "
+            f"{pack_s:.4f}  levels {levels_s:.4f}  unpack {unpack_s:.4f}")
+    got, per_op, calls = _traced_levels(witness, K, prog, env, dev)
+    counts = dict(K.LAUNCHES)
+    if got != want:
+        raise AssertionError("witness: eval_device differs from eval_host")
+    div = [(n, t) for kind, n, t in per_op if kind == "div"]
+    rest = [(n, t) for kind, n, t in per_op if kind != "div"]
+    log(f"K1 launches a run: {sum(n for _k, n, _t in per_op)} over "
+        f"{len(prog.levels)} levels: the div level {sum(n for n, _ in div)} "
+        f"in {sum(t for _, t in div):.5f} s, the others "
+        f"{[n for n, _ in rest]} in {sum(t for _, t in rest):.5f} s (host "
+        "clock, the card synchronised around each level's kind)")
+    _check_path_launches("witness wide", counts, SLICE_KERNELS["witness"])
+
+    div_calls = next(v for (_i, kind), v in calls.items() if kind == "div")
+    mul_calls = next(v for (_i, kind), v in calls.items() if kind == "mul")
+    worst = max(_max_err(K.mont_mul(a, b, spec), K.mont_mul_plain(a, b, spec))
+                for a, b, spec in div_calls)
+    log(f"K1 mont_mul on the div level's {len(div_calls)} products: "
+        f"max_abs_err {worst}")
+    if worst:
+        raise AssertionError("witness: K1 disagrees with plain on the div "
+                             "level")
+    for what, (a, b, spec) in (
+            ("the div level's first product (a square)", div_calls[0]),
+            ("the div level's last product (the quotient)", div_calls[-1]),
+            ("the first mul level's product", mul_calls[0])):
+        log(f"K1 mont_mul at the witness program's inputs: {what}, "
+            f"{tuple(a.shape)}")
+        record("mont_mul", lambda: K.mont_mul(a, b, spec),
+               lambda: K.mont_mul_plain(a, b, spec),
+               lambda got: (_nbytes(a, b, got),
+                            a[0].numel() * PRODUCTS[spec.name]),
+               plain_reps=0)
+    log("eval_host against eval_device by width:")
+    _witness_sweep(dev)
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, None
+
+
+def witness_suite_path(dev):
+    """Phase 10 (b): the reference suite's 13 programs through
+    `eval_device` on the card against `comp.code_eval_list` (seed 5), then
+    the two poison cases: 1/0 raises ZeroDivisionError, a division by zero
+    in the untaken branch of the Or gadget does not."""
+    from zukelang_tpu_torch.core import comp, lang as L, witness
+    from zukelang_tpu_torch.core.circuit import ONE
+    from zukelang_tpu_torch.golden.field import Fr
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.rng import Gen
+    from zukelang_tpu_torch.testing.suites import SUITE
+
+    def zero_inputs(c):
+        env = {vs[0]: Fr(0) for name, (_s, _t, vs) in c.inputs.items()
+               if name != "$ONE"}
+        env[ONE] = Fr(1)
+        return env
+
+    t_phase = time.time()
+    K.reset_counts()
+    for name, mk in SUITE:
+        c = comp.compile_expr(mk())
+        _i, _l, env = comp.gen_inputs(c.inputs, Gen(5))
+        gvars = c.circuit.vars()
+        env = {v: f for v, f in env.items() if v in gvars}
+        prog = witness.compile_witness_program(c.codes, list(env))
+        if witness.eval_device(prog, env, dev) != comp.code_eval_list(
+                env, c.codes):
+            raise AssertionError(f"witness suite: {name} differs from "
+                                 "code_eval_list")
+        log(f"  {name}: {prog.n_steps} steps in {len(prog.levels)} levels, "
+            "equal to code_eval_list")
+    x = L.input("x", L.SECRET, L.ty_field)
+    c = comp.compile_expr(L.let_(x, lambda v: L.div(L.fnum(1), v)))
+    env = zero_inputs(c)
+    prog = witness.compile_witness_program(c.codes, list(env))
+    try:
+        witness.eval_device(prog, env, dev)
+        raise AssertionError("witness suite: 1/0 did not raise")
+    except ZeroDivisionError:
+        log("  1/0: ZeroDivisionError, as code_eval_list")
+    a = L.input("a", L.SECRET, L.ty_bool)
+    b = L.input("b", L.SECRET, L.ty_bool)
+    c = comp.compile_expr(L.let_(a, lambda av: L.let_(
+        b, lambda bv: L.or_(av, bv))))
+    env = zero_inputs(c)
+    prog = witness.compile_witness_program(c.codes, list(env))
+    if witness.eval_device(prog, env, dev) != comp.code_eval_list(env,
+                                                                  c.codes):
+        raise AssertionError("witness suite: the untaken division differs")
+    log("  false or false: the untaken division by zero raises nothing, "
+        "equal to code_eval_list")
+    _sync()
+    counts = dict(K.LAUNCHES)
+    _check_path_launches("witness suite", counts, SLICE_KERNELS["witness"])
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, None
+
+
+def fft_path(dev):
+    """Phase 10 (c): `polynomial_mul_fr` of two 2^(FFT_LOG-1)-coefficient
+    polynomials on the card against the host library's route (`native.
+    fr_ntt` of both, `fr_mul_batch`, the inverse `fr_ntt`); the `fft_fr` /
+    `ifft_fr` round trip at 2^FFT_LOG, the forward transform equal to
+    `native.fr_ntt`'s; the NTT kernel's calls and K1's product against
+    their plain versions on these inputs; `fft_c` at 2^FFT_LOG against
+    numpy's FFT (FFT_C_ATOL)."""
+    import numpy as np
+    from zukelang_tpu_torch import native
+    from zukelang_tpu_torch.golden.field import Fr
+    from zukelang_tpu_torch.ops import fft, ntt
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.params import FR
+
+    t_phase = time.time()
+    rng = random.Random(16)
+    n = 1 << FFT_LOG
+    p1 = [Fr(rng.randrange(FR.p)) for _ in range(n // 2)]
+    p2 = [Fr(rng.randrange(FR.p)) for _ in range(n // 2)]
+    coeffs = p1 + p2
+    K.reset_counts()
+    out = {}
+    t0 = time.time()
+    seen = _capture_inputs(
+        lambda: out.setdefault("prod", fft.polynomial_mul_fr(p1, p2, dev)),
+        [(ntt, "ntt"), (ntt, "intt"), (K, "mont_mul")])
+    mul_s = time.time() - t0
+    t0 = time.time()
+    vals = fft.fft_fr(coeffs, device=dev)
+    fft_s = time.time() - t0
+    t0 = time.time()
+    back = fft.ifft_fr(vals, device=dev)
+    ifft_s = time.time() - t0
+    _sync()
+    counts = dict(K.LAUNCHES)
+    log(f"polynomial_mul_fr 2 x {n // 2} coefficients: {mul_s:.4f} s; "
+        f"fft_fr 2^{FFT_LOG}: {fft_s:.4f} s; ifft_fr: {ifft_s:.4f} s (host "
+        "clock, packing and unpacking included)")
+    if back != coeffs:
+        raise AssertionError("fft: ifft_fr(fft_fr(p)) != p")
+    t0 = time.time()
+    pad = [Fr(0)] * (n // 2)
+    ea, eb = native.fr_ntt(p1 + pad), native.fr_ntt(p2 + pad)
+    want = native.fr_ntt(native.fr_mul_batch(ea, eb), inverse=True)[:n - 1]
+    native_s = time.time() - t0
+    same = out["prod"] == want and native.fr_ntt(coeffs) == vals
+    log(f"host library route (fr_ntt, fr_mul_batch, inverse fr_ntt): "
+        f"{native_s:.4f} s; equal to polynomial_mul_fr, and fr_ntt to "
+        f"fft_fr: {same}")
+    if not same:
+        raise AssertionError("fft: differs from the host library's route")
+    _check_path_launches(f"fft 2^{FFT_LOG}", counts, SLICE_KERNELS["fft"])
+
+    for form in ("ntt", "intt"):
+        for (x, *_r), _kw in seen[form]:
+            log(f"NTT kernel ({form}) at polynomial_mul_fr's inputs "
+                f"({tuple(x.shape)})")
+            record("ntt", lambda: getattr(ntt, form)(x),
+                   lambda: getattr(ntt, form + "_plain")(x),
+                   _ntt_work(x[None], form), plain_reps=0)
+    for (a, b, spec), _kw in seen["mont_mul"]:
+        log(f"K1 mont_mul at polynomial_mul_fr's inputs ({tuple(a.shape)})")
+        record("mont_mul", lambda: K.mont_mul(a, b, spec),
+               lambda: K.mont_mul_plain(a, b, spec),
+               lambda got: (_nbytes(a, b, got),
+                            a[0].numel() * PRODUCTS[spec.name]),
+               plain_reps=0)
+
+    z = np.random.RandomState(16).uniform(-1, 1, (2, n))
+    z = z[0] + 1j * z[1]
+    t0 = time.time()
+    zf = fft.fft_c(z, device=dev)
+    fft_c_s = time.time() - t0
+    err = float(np.abs(zf - np.fft.fft(z)).max())
+    err_back = float(np.abs(fft.ifft_c(zf, device=dev) - z).max())
+    log(f"fft_c 2^{FFT_LOG} (complex128): {fft_c_s:.4f} s; max |err| against "
+        f"numpy {err:.3e}, round trip {err_back:.3e} (tolerance "
+        f"{FFT_C_ATOL})")
+    if err > FFT_C_ATOL or err_back > FFT_C_ATOL:
+        raise AssertionError("fft_c differs from numpy's FFT")
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, None
+
+
+def _msm_call_checks():
+    """{(module, wrapper name): check(fn, args, kwargs)} for every kernel
+    wrapper an MSM calls: each call held against its plain version where
+    it happens (K5 above SAMPLE_ABOVE_CHUNKS chunks on a sample of its
+    block rows), the kernel timed over 3 calls, the row kept quietly."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+
+    def rec(name, kern, plain, work, library=None):
+        record(name, kern, plain, work, reps=3, plain_reps=0,
+               library=library, echo=False)
+
+    def add(fn, a, kw):
+        P, Q = a[:2]
+        rec("point_add", lambda: fn(*a, **kw),
+            lambda: K.point_add_plain(P, Q), _add_work(K.group_of(P[0]), P, Q))
+
+    def carry(fn, a, kw):
+        P, car, idx = a[:3]
+        rec("point_add", lambda: fn(*a, **kw),
+            lambda: K.point_add_carry_plain(P, car, idx),
+            _carry_work(K.group_of(P[0]), P, car, idx))
+
+    def small(fn, a, kw):
+        pts, seg = a[:2]
+        rec("point_add", lambda: fn(*a, **kw),
+            lambda: K.seg_scan_small_plain(pts, seg),
+            _seg_scan_small_work(K.group_of(pts[0]), pts, seg))
+
+    def jscan(fn, a, kw):
+        pts, kc = a[:2]
+        seg = a[2] if len(a) > 2 else kw.get("seg")
+        rec("jac_scan", lambda: fn(*a, **kw),
+            lambda: K.jac_scan_plain(pts, kc, seg, kw.get("g")),
+            _jac_scan_work(K.group_of(pts[0]), pts, kc, seg))
+
+    def dbl(fn, a, kw):
+        pts, counts = a[:2]
+        rec("point_double", lambda: fn(*a, **kw),
+            lambda: K.point_double_n_plain(pts, counts),
+            _double_work(K.group_of(pts[0]), pts, counts))
+
+    def wsum(fn, a, kw):
+        pts, kc = a[:2]
+        rec("weighted_chunk_sums", lambda: fn(*a, **kw),
+            lambda: K.weighted_chunk_sums_plain(pts, kc, kw.get("g")),
+            _wsum_work(K.group_of(pts[0]), pts, kc))
+
+    def dsort(fn, a, kw):
+        keys, nb = a[:2]
+        rec("digit_sort", lambda: fn(*a, **kw),
+            lambda: K.digit_sort_plain(keys, nb),
+            lambda got: (_nbytes(keys, got), 0),
+            library=lambda: torch.sort(keys, dim=-1, stable=True))
+
+    def k5(fn, a, kw):
+        rows, idx, seg, kc, group = a[:5]
+        nb = a[5] if len(a) > 5 else kw.get("nb")
+        B, M = idx.shape[0], idx.shape[1] // kc
+        work = _k5_work(group, rows, idx, seg, kc)
+        if B * M <= SAMPLE_ABOVE_CHUNKS:
+            rec("bucket_scan_rows", lambda: fn(*a, **kw),
+                lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group,
+                                                 nb), work)
+            return
+        S = _rows_sample(B)
+        rs = torch.tensor(S, device=idx.device)
+        lanes = (rs[:, None] * M
+                 + torch.arange(M, device=idx.device)).reshape(-1)
+        bcols = (rs[:, None] * nb
+                 + torch.arange(nb, device=idx.device)).reshape(-1)
+        record_sampled(
+            "bucket_scan_rows", lambda: fn(*a, **kw),
+            lambda: K.bucket_scan_rows_plain(rows, idx[rs], seg[rs], kc,
+                                             group, nb),
+            lambda got: (tuple(x[..., lanes] for x in got[0]),
+                         tuple(x[..., bcols] for x in got[1]), got[2][lanes]),
+            work, f"block rows {S} of {B}", reps=3)
+
+    return {(K, "point_add"): add, (K, "point_add_carry"): carry,
+            (K, "seg_scan_small"): small, (K, "jac_scan"): jscan,
+            (K, "point_double_n"): dbl, (K, "weighted_chunk_sums"): wsum,
+            (K, "digit_sort"): dsort, (K, "bucket_scan_rows"): k5}
+
+
+def _check_at_call(what: str, run, checks):
+    """run() with each wrapper of `checks` replaced by one that holds the
+    call against its plain version first (`_msm_call_checks`); logs each
+    kernel's calls and their summed kernel time; -> run()'s result."""
+    before = {k: len(v) for k, v in RESULTS.items()}
+    orig = {name: (m, getattr(m, name)) for m, name in checks}
+
+    def wrap(fn, check):
+        def call(*a, **kw):
+            check(fn, a, kw)
+            return fn(*a, **kw)
+        return call
+    try:
+        for (m, name), check in checks.items():
+            setattr(m, name, wrap(orig[name][1], check))
+        out = run()
+    finally:
+        for name, (m, fn) in orig.items():
+            setattr(m, name, fn)
+    for k, rows in RESULTS.items():
+        new = rows[before.get(k, 0):]
+        if new:
+            log(f"  {what}: {k}: {len(new)} calls equal to their plain "
+                f"versions (max_abs_err {max(r['err'] for r in new)}; kernel "
+                f"{sum(r['ms'] for r in new):.3f} ms, plain "
+                f"{sum(r['plain_ms'] for r in new):.1f} ms, in all)")
+    return out
+
+
+def bench_msm_path(dev):
+    """Phase 10 (d): `bench_msm.main` at 2^MSM_BENCH_LOG, at the auto window
+    and at c = MSM_BENCH_C, each on Jacobian and affine bases: the four
+    results equal, and equal to the host library's `native.g1_msm` on the
+    same points and scalars (run in a thread beside what follows); `main`
+    at 2^GOLDEN_LOG against golden `G1.dot` (its OK lines); then every
+    kernel call of one Jacobian and of one affine MSM at 2^MSM_BENCH_LOG,
+    c = MSM_BENCH_C, against its plain version (`_check_at_call`)."""
+    from zukelang_tpu_torch import bench_msm, native
+    from zukelang_tpu_torch.golden.field import Fr
+    from zukelang_tpu_torch.ops import curve as C
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+
+    t_phase = time.time()
+    logn = MSM_BENCH_LOG
+    log(f"auto_window(2^{logn}) = {msm.auto_window(1 << logn)}")
+    K.reset_counts()
+    runs = [bench_msm.main([str(logn)]),
+            bench_msm.main([str(logn), str(MSM_BENCH_C)])]
+    found = [pt for r in runs for pt in r["results"].values()]
+    log(f"bench_msm at 2^{logn}: {len(found)} results ("
+        f"{[k for r in runs for k in r['results']]}), all equal: "
+        f"{all(pt == found[0] for pt in found)}")
+    if any(pt != found[0] for pt in found):
+        raise AssertionError("bench_msm: the Jacobian and affine results "
+                             "differ")
+    out = runs[-1]
+    pts = C.unpack_g1(C.affine_to_jac(out["affine"]))
+    scalars = [Fr(s) for s in out["scalars"]]
+
+    def host_msm():
+        t0 = time.time()
+        return native.g1_msm(pts, scalars), time.time() - t0
+
+    # the host library's MSM (seconds of one host core) runs in a thread
+    # beside the rest of the phase; ctypes releases the interpreter lock
+    with ThreadPoolExecutor(1) as pool:
+        native_run = pool.submit(host_msm)
+        bench_msm.main([str(GOLDEN_LOG)])
+        _sync()
+        counts = dict(K.LAUNCHES)
+        _check_path_launches(f"bench_msm 2^{logn}", counts,
+                             SLICE_KERNELS["bench_msm"])
+        P, S, A = out["points"], out["scalars_std"], out["affine"]
+        for tag, bases in (("jac", P), ("aff", A)):
+            log(f"every kernel call of one MSM[{tag}] at 2^{logn}, c = "
+                f"{MSM_BENCH_C}, against its plain version")
+            got = _check_at_call(f"MSM[{tag}]", lambda: msm.msm_staged(
+                bases, S, "g1", MSM_BENCH_C), _msm_call_checks())
+            if got != found[0]:
+                raise AssertionError(f"bench_msm: the checked MSM[{tag}] "
+                                     "differs")
+        want, native_s = native_run.result()
+    log(f"native.g1_msm at 2^{logn}: {native_s:.2f} s on a host thread "
+        f"beside the checks; equal to bench_msm's: {want == found[0]}")
+    if want != found[0]:
+        raise AssertionError("bench_msm: differs from native.g1_msm")
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return counts, None
 
 
 def main() -> int:
@@ -1544,6 +2080,16 @@ def main() -> int:
     eng16 = f"engine_groth16_2^{ENGINE_LOG}"
     paths[eng16] = engine_groth16_path(dev, ENGINE_LOG)
     provers.append(eng16)
+    log(f"phase 10 (a): the witness evaluator, {WITNESS_LANES} lanes x "
+        f"{WITNESS_LEVELS} levels")
+    paths[f"witness_wide_{WITNESS_LANES}x{WITNESS_LEVELS}"] = \
+        witness_wide_path(dev)
+    log("phase 10 (b): the witness evaluator over the suite")
+    paths["witness_suite"] = witness_suite_path(dev)
+    log(f"phase 10 (c): the FFT API at 2^{FFT_LOG}")
+    paths[f"fft_2^{FFT_LOG}"] = fft_path(dev)
+    log(f"phase 10 (d): bench_msm at 2^{MSM_BENCH_LOG}")
+    paths[f"bench_msm_2^{MSM_BENCH_LOG}"] = bench_msm_path(dev)
 
     kernels = []
     for name in K.KERNELS:

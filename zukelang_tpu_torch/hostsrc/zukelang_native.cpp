@@ -1,7 +1,9 @@
 // The port's copy of native/zukelang_native.cpp, the JAX package's host
 // backend: BLS12-381 Fr/Fq arithmetic, G1 curve ops, Pippenger MSM, a
-// radix-2 NTT over Fr and the optimal ate pairing.  The port calls only the
-// pairing (zukelang_tpu_torch/native.py builds and loads this file).
+// radix-2 NTT over Fr and the optimal ate pairing.
+// zukelang_tpu_torch/native.py builds and loads this file and binds the Fr
+// batches, the NTT, the G1 scalar multiplication and MSM and the pairing;
+// the protocols verify through the pairing.
 //
 // Plays the role blst's C library plays for the OCaml reference
 // (dune-project:23, curve.ml:74-221): the fast *host-side*

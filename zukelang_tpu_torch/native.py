@@ -1,4 +1,4 @@
-"""The port's host pairing library: `hostsrc/zukelang_native.cpp`.
+"""The port's host library: `hostsrc/zukelang_native.cpp`.
 
 Built with the host C++ compiler at first use into `build/native/` beside
 the package (listed in .gitignore), keyed by a hash of the source, the
@@ -6,8 +6,15 @@ flags and the host CPU (the build uses -march=native), and loaded once
 per process with ctypes, the way `build.py` builds the CUDA kernels.  It
 is never loaded from anywhere else.
 
-There is no fallback: when the compiler is missing, the build fails or
-the library does not load, `library()` raises.  The golden pairing is
+The bindings are those of `zukelang_tpu/native/__init__.py`, with its
+byte formats (little-endian standard-form Fr of 32 bytes, affine G1 of
+97: x, y and an infinity byte): Fr batch products and inverses, the
+radix-2 NTT over Fr, G1 scalar multiplication and MSM, and the pairing.
+They take and return golden values.
+
+There is no fallback: when the compiler is missing (or `CXX` names one
+that is missing), the build fails or the library does not load,
+`library()` raises, and so does every binding.  The golden pairing is
 taken only where a caller asks for it (`pairing.pairing(..., backend=
 "golden")`).
 """
@@ -21,9 +28,11 @@ import platform
 import shutil
 import subprocess
 import time
+from typing import List
 
-from .golden.curve import GT
-from .golden.field import Fq2, Fq6, Fq12
+from . import params
+from .golden.curve import G1, GT
+from .golden.field import Fq, Fq2, Fq6, Fq12, Fr
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "hostsrc", "zukelang_native.cpp")
@@ -58,15 +67,31 @@ def _digest() -> str:
 
 
 def _cxx() -> str:
-    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
-        if name and shutil.which(name):
+    """`CXX` where it is set (it must exist), else g++, c++ or clang++."""
+    cxx = os.environ.get("CXX")
+    for name in ((cxx,) if cxx else ("g++", "c++", "clang++")):
+        if shutil.which(name):
             return shutil.which(name)
-    raise RuntimeError("no C++ compiler (g++, c++ or clang++; or set CXX): "
-                       "the native pairing cannot be built")
+    raise RuntimeError(f"no C++ compiler ({cxx!r} from CXX)" if cxx else
+                       "no C++ compiler (g++, c++ or clang++; or set CXX): "
+                       "the native library cannot be built")
+
+
+# ctypes signatures: name -> argument types (every function returns void)
+_P = ctypes.c_char_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "fr_mul_batch": [_P, _P, _P, _I64],
+    "fr_inv_batch": [_P, _P, _I64],
+    "fr_ntt": [_P, _I64, _P, ctypes.c_int, _P],
+    "g1_scalar_mul": [_P, _P, _P],
+    "g1_msm": [_P, _P, _I64, _P],
+    "gt_multi_pairing": [_P, _P, _P, _P, _I64, _P],
+}
 
 
 def library() -> ctypes.CDLL:
-    """The pairing library, built on first use."""
+    """The host library, built on first use."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
@@ -78,7 +103,7 @@ def library() -> ctypes.CDLL:
         res = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, SOURCE],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError("native pairing build failed:\n"
+            raise RuntimeError("native library build failed:\n"
                                + res.stderr[-8000:])
         os.replace(tmp, out)
         build_seconds = time.time() - t0
@@ -87,12 +112,100 @@ def library() -> ctypes.CDLL:
     lib.native_abi_version.restype = ctypes.c_int
     if lib.native_abi_version() != 1:
         raise RuntimeError(f"{out}: unexpected ABI version")
-    lib.gt_multi_pairing.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
-                                     ctypes.c_char_p, ctypes.c_char_p,
-                                     ctypes.c_int64, ctypes.c_char_p]
-    lib.gt_multi_pairing.restype = None
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = None
     _lib = lib
     return _lib
+
+
+# -- converters --------------------------------------------------------------
+
+def _frs_to_bytes(xs: List[Fr]) -> bytes:
+    return b"".join(x.n.to_bytes(32, "little") for x in xs)
+
+
+def _bytes_to_frs(b: bytes) -> List[Fr]:
+    return [Fr(int.from_bytes(b[i * 32:(i + 1) * 32], "little"))
+            for i in range(len(b) // 32)]
+
+
+def _g1s_to_bytes(pts: List[G1]) -> bytes:
+    out = bytearray()
+    for p in pts:
+        if p.is_zero():
+            out += bytes(96) + b"\x01"
+        else:
+            out += p.x.n.to_bytes(48, "little")
+            out += p.y.n.to_bytes(48, "little")
+            out += b"\x00"
+    return bytes(out)
+
+
+def _bytes_to_g1(b: bytes) -> G1:
+    if b[96]:
+        return G1.zero()
+    x = int.from_bytes(b[:48], "little")
+    y = int.from_bytes(b[48:96], "little")
+    return G1(Fq(x), Fq(y))
+
+
+# -- API ---------------------------------------------------------------------
+
+def fr_mul_batch(a: List[Fr], b: List[Fr]) -> List[Fr]:
+    """[x * y for x, y in zip(a, b)]."""
+    lib = library()
+    if len(a) != len(b):
+        raise ValueError(f"fr_mul_batch: {len(a)} and {len(b)} elements")
+    out = ctypes.create_string_buffer(32 * len(a))
+    lib.fr_mul_batch(_frs_to_bytes(a), _frs_to_bytes(b), out, len(a))
+    return _bytes_to_frs(out.raw)
+
+
+def fr_inv_batch(a: List[Fr]) -> List[Fr]:
+    """[x^-1 for x in a], zero for zero."""
+    lib = library()
+    out = ctypes.create_string_buffer(32 * len(a))
+    lib.fr_inv_batch(_frs_to_bytes(a), out, len(a))
+    return _bytes_to_frs(out.raw)
+
+
+def fr_ntt(values: List[Fr], inverse: bool = False) -> List[Fr]:
+    """The radix-2 NTT over Fr in natural order (the inverse with the 1/N
+    scaling), on the host."""
+    from .ops.ntt import root_for
+    lib = library()
+    n = len(values)
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"fr_ntt: length {n} is not a power of two")
+    logn = n.bit_length() - 1
+    w = root_for(logn, inverse)
+    buf = ctypes.create_string_buffer(_frs_to_bytes(values), 32 * n)
+    ninv = pow(n, -1, params.R)
+    lib.fr_ntt(buf, logn, w.to_bytes(32, "little"), 1 if inverse else 0,
+               ninv.to_bytes(32, "little"))
+    return _bytes_to_frs(buf.raw)
+
+
+def g1_msm(points: List[G1], scalars: List[Fr]) -> G1:
+    """sum_i scalars[i] * points[i] (Pippenger, c = 8, on the host)."""
+    lib = library()
+    if len(points) != len(scalars):
+        raise ValueError(f"g1_msm: {len(points)} points and {len(scalars)} "
+                         "scalars")
+    out = ctypes.create_string_buffer(97)
+    lib.g1_msm(_g1s_to_bytes(points), _frs_to_bytes(scalars), len(points),
+               out)
+    return _bytes_to_g1(out.raw)
+
+
+def g1_scalar_mul(point: G1, scalar: Fr) -> G1:
+    lib = library()
+    out = ctypes.create_string_buffer(97)
+    lib.g1_scalar_mul(_g1s_to_bytes([point]), scalar.n.to_bytes(32, "little"),
+                      out)
+    return _bytes_to_g1(out.raw)
 
 
 def gt_multi_pairing(pairs) -> GT:
@@ -124,3 +237,8 @@ def gt_multi_pairing(pairs) -> GT:
             for i in range(12)]
     f2 = [Fq2.of_ints(vals[2 * i], vals[2 * i + 1]) for i in range(6)]
     return GT(Fq12(Fq6(f2[0], f2[1], f2[2]), Fq6(f2[3], f2[4], f2[5])))
+
+
+def gt_pairing(p, q) -> GT:
+    """e(P, Q) through the C++ tower."""
+    return gt_multi_pairing([(p, q)])

@@ -19,7 +19,9 @@ Counterpart of `zukelang_tpu/ops/msm.py`:
     (`_jit_window`), the route of its MSM profilers.  Affine bases take
     the K8 route (`_bucket_sums_fused`: K4 sort, gather, K8 scan, carry
     scatter with K7 and K2); the chunked (one K3 chain) and Jacobian
-    (log-depth K2 scan) variants keep their JAX routes.  `msm_staged`
+    (log-depth K2 scan) variants keep their JAX routes.  `msm_staged` on
+    Jacobian (X, Y, Z) bases runs the Jacobian variant over every window,
+    as the JAX package's fused program does on non-affine bases; it
     returns a golden point.
 
 Where the JAX package scans over windows, the v2 MSM runs each stage once
@@ -391,10 +393,11 @@ def window_program(group: str, c: int, chunked: bool = True,
     `affine`, else Jacobian) and one window's digits (N,) (signed in
     [-(2^(c-1) - 1), 2^(c-1)] when `signed`) and returns the window's
     weighted bucket sum, a batch-1 point.  Affine bases take the K8 route
-    on every device.  The profiler and `chip_smoke.py` run only that
-    route (affine, signed); the Jacobian, `chunked=False` and unsigned
-    variants are kept for parity with `_jit_window`, held against it by
-    the tests, for the port of the JAX `bench_msm` that will run them."""
+    on every device; the profiler and `chip_smoke.py` run it (affine,
+    signed).  Jacobian bases with `chunked=False` (signed) are the route
+    of `msm_staged` on Jacobian bases, which `bench_msm` times.  The
+    chunked Jacobian and the unsigned variants stay for parity with
+    `_jit_window`, held against it by the tests."""
     def bucket_fn(points, dig, nb):
         if affine:
             return _bucket_sums_fused(points, dig, nb)
@@ -647,14 +650,33 @@ def _msm_safe_impl(points, scalars_std, c: int, group: str) -> C.Point:
     return _msm_safe_core(precs, digits, bases, 1, c, group)
 
 
-def msm_staged_deferred(points: C.AffinePoint, scalars_std: torch.Tensor,
+def _msm_jacobian(points: C.Point, scalars_std: torch.Tensor, group: str,
+                  c: int) -> C.Point:
+    """One MSM of Jacobian bases: the window program's log-depth K2 scan
+    (`window_program(chunked=False, affine=False)`) over every window of
+    the signed digits, then the window combine."""
+    digits = _scalars_to_signed_windows(scalars_std, c)
+    run = window_program(group, c, chunked=False, affine=False)
+    sums = [run(points, digits[w]) for w in range(digits.shape[0])]
+    stacked = tuple(torch.cat([s[i] for s in sums], dim=-1) for i in range(3))
+    return _combine_windows(stacked, c, digits.shape[0])
+
+
+def msm_staged_deferred(points, scalars_std: torch.Tensor,
                         group: str = "g1", c: int = None):
-    """One MSM of affine points with standard-form scalars; returns
-    `resolve()` yielding the batch-1 point (see msm_many_staged_deferred)."""
+    """One MSM with standard-form scalars; returns `resolve()` yielding the
+    batch-1 point.  Affine (X, Y) bases take the v2 pipeline (see
+    msm_many_staged_deferred).  Jacobian (X, Y, Z) bases take
+    `_msm_jacobian`, whose general adds resolve the degenerate cases in
+    the formula: it never collides, and `resolve()` re-dispatches
+    nothing."""
     n = points[0].shape[-1]
-    _check_width(n)
     if c is None:
         c = auto_window(n)
+    if len(points) == 3:
+        res = _msm_jacobian(points, scalars_std, group, c)
+        return lambda: res
+    _check_width(n)
     precs, digits, bases = _single_blocks(points, scalars_std, c)
     res, col = _msm_fused_impl(precs, digits, bases, 1, c, group)
 
@@ -666,8 +688,8 @@ def msm_staged_deferred(points: C.AffinePoint, scalars_std: torch.Tensor,
     return resolve
 
 
-def msm_staged(points: C.AffinePoint, scalars_std: torch.Tensor,
-               group: str = "g1", c: int = None):
+def msm_staged(points, scalars_std: torch.Tensor, group: str = "g1",
+               c: int = None):
     """One MSM (`msm_staged_deferred`) -> a golden point on the host."""
     res = msm_staged_deferred(points, scalars_std, group, c)()
     return (C.unpack_g1 if group == "g1" else C.unpack_g2)(res)[0]
