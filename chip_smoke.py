@@ -109,11 +109,37 @@ Phases (any failure raises and the script exits non-zero):
      and affine bases, all equal and equal to `native.g1_msm`, then at
      2^10 against golden `G1.dot`; every kernel call of one Jacobian and
      one affine MSM at 2^18 against its plain version (K5 above
-     SAMPLE_ABOVE_CHUNKS chunks on sampled block rows).  (a) and (b) must
+     SAMPLE_ABOVE_CHUNKS chunks on sampled block rows, K2's adds above
+     SAMPLE_ABOVE_LANES lanes and K7 above SAMPLE_SCAN_CHUNKS chunks on
+     four runs of lanes).  (a) and (b) must
      launch K1, (c) the NTT kernel and K1, (d) K2's add and doubling, K7,
      K6, K4 and K5; none of them K8 or the looped probe.
-Phases 4, 5, 8 and 9 (b) also print the launches of one prove.
-Each path of phases 4 to 9 starts from zeroed counts; every kernel of
+ 11. the multi-rank slice (`parallel/`) on a world of one NCCL rank in
+     this process (`launch.init_world1`): (a) Groth16 at 2^16 with phase
+     4's keypair through `sharded_groth16_prove` (c = 4), a cold and
+     three warm proves, its proof equal to `prove_device`'s under the
+     same rng and verified, prove_s beside `prove_device`'s, one prove's
+     split (witness reduction, MSMs, rest), launches by kernel,
+     collectives and their bytes, and peak memory; (b) Pinocchio ZK at
+     2^14 (pad 2^16) with phase 5's keypair, likewise; (c) the four-step
+     NTT at 2^16 and 2^20: `sharded_ntt` and `sharded_intt` against
+     `ntt` / `intt`, the host twiddle tables' build time and
+     `sharded_ntt_phase_times`; (d) the dry run's c = 8 G1 MSM at 2^10
+     against golden `G1.dot` (computed in a process of its own beside
+     (a)-(c)), then `measure_msm_scaling(16, c=8)` and
+     `measure_ntt_scaling(20)` at the phase's world of one rank: their
+     rank targets (`scaling.msm_rank`, `ntt_rank`) on the phase's mesh,
+     so that their launches are counted; (e) every kernel call of one
+     more (a) prove, of (d)'s MSM and of one NTT of (d)'s scaling target
+     against its plain version: K1, the NTT kernel's column and row
+     batches, K7 (above SAMPLE_SCAN_CHUNKS chunks on four runs of
+     chunks), K2's adds (above SAMPLE_ABOVE_LANES lanes on four runs of
+     lanes) and its doubling.  (a) and (b) must launch K1, the NTT kernel
+     and K2's add and doubling, (d) those and K7; none of them K8 or the
+     looped probe.
+Phases 4, 5, 8, 9 (b) and 11 (a), (b) also print the launches of one
+prove.
+Each path of phases 4 to 11 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
 add at most MAX_ADD_LAUNCHES times a prove.  Then one JSON
@@ -215,6 +241,22 @@ FFT_C_ATOL = 1e-9
 # (r, s) of phase 9 (b), shared by the engine and the device Groth16
 ENGINE_KEY = tuple(range(1000, 1005))
 ENGINE_PROVE = (77, 88)
+# phase 11: the sharded paths on a world of one NCCL rank: the sharded
+# proves' window (the JAX default), the four-step NTT's sizes, and the
+# dry run's c = 8 MSM at 2^GOLDEN_LOG
+SHARDED_C = 4
+SHARDED_NTT_LOGS = (16, 20)
+DRYRUN_C = 8
+SCALING_MSM_LOG, SCALING_NTT_LOG = 16, 20
+# the kernels the sharded proves must launch, and (d): the c = 8 MSM and
+# the scaling harness's rank targets
+SHARDED_KERNELS = ("mont_mul", "ntt", "point_add", "point_double")
+SHARDED_MSM_KERNELS = SHARDED_KERNELS + ("jac_scan",)
+# Above these a K2 add (lanes) or a K7 scan (chunks) of an MSM checked
+# call by call (phases 10 (d) and 11) is held against its plain version
+# on four runs of a quarter as many lanes or chunks
+SAMPLE_ABOVE_LANES = 1 << 15
+SAMPLE_SCAN_CHUNKS = 32
 
 # The least time the card could take: bytes over the HBM rate, and limb
 # products over the integer rate.  NVIDIA's data sheet gives no 32-bit
@@ -320,6 +362,9 @@ def _wsum_work(group, P, K):
 
 # kernel name -> rows of its checks: err, ms, plain_ms, bound, library_ms
 RESULTS = {}
+# path -> the bench run of phases 4 and 5 (keypair, instance, witness),
+# which phase 11 proves with again
+RUNS = {}
 
 
 def record(name, kern, plain, work, reps=20, plain_reps=2, library=None,
@@ -356,7 +401,7 @@ def record(name, kern, plain, work, reps=20, plain_reps=2, library=None,
         raise AssertionError(f"{name}: kernel disagrees with plain")
 
 
-def record_sampled(name, kern, plain, pick, work, what, reps=20):
+def record_sampled(name, kern, plain, pick, work, what, reps=20, echo=True):
     """Hold the whole kernel call's output at the sampled columns
     (`pick(got)`) against the plain version on the sample (`plain`), where
     the plain version on the whole input costs too much.  `ms` and the
@@ -377,9 +422,10 @@ def record_sampled(name, kern, plain, pick, work, what, reps=20):
     RESULTS.setdefault(name, []).append(dict(
         err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, sample=what))
-    log(f"  {name}: max_abs_err {err} on {what}  kernel {ms:.4f} ms (whole "
-        f"call)  plain {plain_ms:.4f} ms (on the sample)  bound {bound_ms:.4f} "
-        f"ms ({bound_by}, whole call)")
+    if echo or err != 0:
+        log(f"  {name}: max_abs_err {err} on {what}  kernel {ms:.4f} ms "
+            f"(whole call)  plain {plain_ms:.4f} ms (on the sample)  bound "
+            f"{bound_ms:.4f} ms ({bound_by}, whole call)")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with plain on {what}")
 
@@ -933,6 +979,7 @@ def groth16_path(dev, log_constraints: int, sample: bool = False):
                                  dev)
     log(f"phase wall {time.time() - t_phase:.1f} s")
     log(json.dumps(rec))
+    RUNS[path] = run
     return counts, run.prove_launches
 
 
@@ -1201,6 +1248,7 @@ def pinocchio_path(dev, log_constraints: int):
         raise AssertionError("pinocchio: NonZK proof does not verify")
     _check_launches("pinocchio", counts, PROVE_KERNELS, keygen_madds,
                     len(small), per_prove)
+    RUNS[f"pinocchio_2^{log_constraints}"] = run
     return counts, per_prove
 
 
@@ -1856,11 +1904,24 @@ def fft_path(dev):
     return counts, None
 
 
+def _lane_runs(n: int, per: int, device):
+    """(columns, what) of four runs of `per` of n lanes: the first, two
+    between and the last."""
+    import torch
+    runs = _rows_sample(n // per)
+    cols = torch.cat([torch.arange(r * per, (r + 1) * per, device=device)
+                      for r in runs])
+    return cols, f"lane runs {runs} of {n // per} ({per} lanes each)"
+
+
 def _msm_call_checks():
     """{(module, wrapper name): check(fn, args, kwargs)} for every kernel
     wrapper an MSM calls: each call held against its plain version where
-    it happens (K5 above SAMPLE_ABOVE_CHUNKS chunks on a sample of its
-    block rows), the kernel timed over 3 calls, the row kept quietly."""
+    it happens, the kernel timed over 3 calls, the row kept quietly.  A
+    K2 add over more than SAMPLE_ABOVE_LANES lanes is held on four runs
+    of lanes, a K7 scan of more than SAMPLE_SCAN_CHUNKS chunks on four
+    runs of chunks, K5 above SAMPLE_ABOVE_CHUNKS chunks on a sample of its
+    block rows."""
     import torch
     from zukelang_tpu_torch.ops import kernels as K
 
@@ -1870,8 +1931,19 @@ def _msm_call_checks():
 
     def add(fn, a, kw):
         P, Q = a[:2]
-        rec("point_add", lambda: fn(*a, **kw),
-            lambda: K.point_add_plain(P, Q), _add_work(K.group_of(P[0]), P, Q))
+        n = P[0].shape[-1]
+        work = _add_work(K.group_of(P[0]), P, Q)
+        if n <= SAMPLE_ABOVE_LANES:
+            rec("point_add", lambda: fn(*a, **kw),
+                lambda: K.point_add_plain(P, Q), work)
+            return
+        cols, what = _lane_runs(n, SAMPLE_ABOVE_LANES // 4, P[0].device)
+
+        def sub(T):
+            return tuple(x[..., cols] for x in T)
+        record_sampled("point_add", lambda: fn(*a, **kw),
+                       lambda: K.point_add_plain(sub(P), sub(Q)), sub, work,
+                       what, reps=3, echo=False)
 
     def carry(fn, a, kw):
         P, car, idx = a[:3]
@@ -1888,9 +1960,22 @@ def _msm_call_checks():
     def jscan(fn, a, kw):
         pts, kc = a[:2]
         seg = a[2] if len(a) > 2 else kw.get("seg")
-        rec("jac_scan", lambda: fn(*a, **kw),
-            lambda: K.jac_scan_plain(pts, kc, seg, kw.get("g")),
-            _jac_scan_work(K.group_of(pts[0]), pts, kc, seg))
+        n = pts[0].shape[-1]
+        g = kw.get("g") or K.jac_scan_group(n // kc, kc)
+        work = _jac_scan_work(K.group_of(pts[0]), pts, kc, seg)
+        if n // kc <= SAMPLE_SCAN_CHUNKS:
+            rec("jac_scan", lambda: fn(*a, **kw),
+                lambda: K.jac_scan_plain(pts, kc, seg, g), work)
+            return
+        cols, what = _lane_runs(n, kc * SAMPLE_SCAN_CHUNKS // 4,
+                                pts[0].device)
+        record_sampled(
+            "jac_scan", lambda: fn(*a, **kw),
+            lambda: K.jac_scan_plain(tuple(x[..., cols] for x in pts), kc,
+                                     seg[cols] if seg is not None else None,
+                                     g),
+            lambda got: tuple(x[..., cols] for x in got), work, what, reps=3,
+            echo=False)
 
     def dbl(fn, a, kw):
         pts, counts = a[:2]
@@ -1977,7 +2062,8 @@ def bench_msm_path(dev):
     same points and scalars (run in a thread beside what follows); `main`
     at 2^GOLDEN_LOG against golden `G1.dot` (its OK lines); then every
     kernel call of one Jacobian and of one affine MSM at 2^MSM_BENCH_LOG,
-    c = MSM_BENCH_C, against its plain version (`_check_at_call`)."""
+    c = MSM_BENCH_C, against its plain version (`_check_at_call`, the
+    samples of `_msm_call_checks`)."""
     from zukelang_tpu_torch import bench_msm, native
     from zukelang_tpu_torch.golden.field import Fr
     from zukelang_tpu_torch.ops import curve as C
@@ -2015,11 +2101,12 @@ def bench_msm_path(dev):
         _check_path_launches(f"bench_msm 2^{logn}", counts,
                              SLICE_KERNELS["bench_msm"])
         P, S, A = out["points"], out["scalars_std"], out["affine"]
+        checks = _msm_call_checks()
         for tag, bases in (("jac", P), ("aff", A)):
             log(f"every kernel call of one MSM[{tag}] at 2^{logn}, c = "
                 f"{MSM_BENCH_C}, against its plain version")
             got = _check_at_call(f"MSM[{tag}]", lambda: msm.msm_staged(
-                bases, S, "g1", MSM_BENCH_C), _msm_call_checks())
+                bases, S, "g1", MSM_BENCH_C), checks)
             if got != found[0]:
                 raise AssertionError(f"bench_msm: the checked MSM[{tag}] "
                                      "differs")
@@ -2030,6 +2117,328 @@ def bench_msm_path(dev):
         raise AssertionError("bench_msm: differs from native.g1_msm")
     log(f"phase wall {time.time() - t_phase:.1f} s")
     return counts, None
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-rank slice (parallel/) on a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+def _sharded_call_checks():
+    """`_msm_call_checks` and K1's and the NTT kernel's calls, each held
+    whole."""
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import ntt
+    checks = _msm_call_checks()
+
+    def mul(fn, a, kw):
+        x, y, spec = a[:3]
+        record("mont_mul", lambda: fn(*a, **kw),
+               lambda: K.mont_mul_plain(x, y, spec),
+               lambda got: (_nbytes(x, y, got),
+                            x[0].numel() * PRODUCTS[spec.name]),
+               reps=3, plain_reps=0, echo=False)
+
+    def transform(fn, a, kw):
+        x, logn = a[:2]
+        record("ntt", lambda: fn(*a, **kw),
+               lambda: ntt.transform_plain(x, logn, **kw),
+               _ntt_work(x, "intt" if kw["inverse"] else "ntt"),
+               reps=3, plain_reps=0, echo=False)
+
+    checks.update({(K, "mont_mul"): mul, (ntt, "transform"): transform})
+    return checks
+
+
+def _sharded_run(dev, proto: str):
+    """The keypair, instance and witness of phase 4's Groth16 run or phase
+    5's Pinocchio run, or a new run where phase 11 runs alone."""
+    from zukelang_tpu_torch import bench_lib
+    if proto == "groth16":
+        key = f"groth16_2^{LOG_CONSTRAINTS}"
+        if key not in RUNS:
+            RUNS[key] = bench_lib.run_groth16(LOG_CONSTRAINTS, seed=1,
+                                              repeats=1, device=dev)
+    else:
+        key = f"pinocchio_2^{PIN_LOG_CONSTRAINTS}"
+        if key not in RUNS:
+            RUNS[key] = bench_lib.run_pinocchio(PIN_LOG_CONSTRAINTS, seed=1,
+                                                repeats=1, zk=True, device=dev)
+    return RUNS[key]
+
+
+def _timed_split(mesh, prove):
+    """One more prove with the witness reduction and each sharded MSM
+    timed on the host clock (the card synchronised around each), its
+    launches by kernel, collectives and their bytes, and peak memory:
+    -> (proof, dict of the figures)."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.parallel import sharded
+    spent = {"witness_reduction_s": 0.0, "msm_s": 0.0}
+    orig = {n: getattr(sharded, n) for n in ("sharded_witness_reduction",
+                                             "sharded_msm")}
+
+    def timed(name, key):
+        def call(*a, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            _sync()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+    before, coll = dict(K.LAUNCHES), dict(mesh.counts)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        sharded.sharded_witness_reduction = timed(
+            "sharded_witness_reduction", "witness_reduction_s")
+        sharded.sharded_msm = timed("sharded_msm", "msm_s")
+        proof = prove()
+    finally:
+        for n, fn in orig.items():
+            setattr(sharded, n, fn)
+    total = time.perf_counter() - t0
+    spent["rest_s"] = total - spent["witness_reduction_s"] - spent["msm_s"]
+    spent["prove_s"] = total
+    spent["launches"] = _diff(K.LAUNCHES, before)
+    spent["collectives"] = _diff(mesh.counts, coll)
+    spent["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    return proof, spent
+
+
+def _sharded_prove_path(dev, mesh, proto: str, checks=None):
+    """Phase 11 (a) and (b): a cold and three warm sharded proves from
+    zeroed counts (every kernel of SHARDED_KERNELS launched, neither K8 nor
+    the looped probe), one more with its split, launches, collectives and
+    peak memory; `prove_device` under the same rng (equal proof, three
+    warm proves timed) and verify; with `checks` (`_sharded_call_checks`),
+    one more sharded prove with each kernel call held against its plain
+    version."""
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.parallel import sharded
+    from zukelang_tpu_torch.protocols import groth16_device as gd
+    from zukelang_tpu_torch.protocols import pinocchio_device as pd
+    from zukelang_tpu_torch.protocols.pinocchio import PROOF_FIELDS
+    from zukelang_tpu_torch.rng import Gen
+
+    run = _sharded_run(dev, proto)
+    fc, wm = run.inst.fc, run.witness
+    if proto == "groth16":
+        fields = ("a", "b", "c")
+
+        def prove():
+            return sharded.sharded_groth16_prove(
+                mesh, run.crs, fc, wm, Gen(b"sharded-prove"), c=SHARDED_C)
+
+        def reference():
+            return gd.prove_device(run.crs, fc, wm, Gen(b"sharded-prove"))
+        verify = gd.verify
+    else:
+        fields = PROOF_FIELDS
+
+        def prove():
+            return sharded.sharded_pinocchio_prove(
+                mesh, run.pkey, fc, wm, Gen(b"sharded-prove"), zk=True,
+                c=SHARDED_C)
+
+        def reference():
+            return pd.prove_device(run.pkey, fc, wm, Gen(b"sharded-prove"),
+                                   zk=True)
+        verify = pd.verify
+    path = f"sharded_{proto}_2^{run.log_constraints}"
+    K.reset_counts()
+    t0 = time.time()
+    proof = prove()
+    cold = time.time() - t0
+    warm = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        prove()
+        warm.append(time.perf_counter() - t0)
+    _sync()
+    counts = dict(K.LAUNCHES)
+    _check_path_launches(path, counts, SHARDED_KERNELS)
+    _p, split = _timed_split(mesh, prove)
+    ref = reference()
+    dev_warm = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        reference()
+        dev_warm.append(time.perf_counter() - t0)
+    same = all(getattr(proof, f) == getattr(ref, f) for f in fields)
+    ok = verify(run.public, run.vkey, proof)
+    log(f"{path}: sharded prove_first_s {cold:.3f}, prove_s "
+        f"{min(warm):.4f} (warm {[round(t, 4) for t in warm]}); "
+        f"prove_device prove_s {min(dev_warm):.4f} (warm "
+        f"{[round(t, 4) for t in dev_warm]}); equal to prove_device's "
+        f"proof: {same}; verified: {ok}")
+    log(f"  split of one prove: witness reduction "
+        f"{split['witness_reduction_s']:.4f} s, MSMs {split['msm_s']:.4f} s, "
+        f"rest {split['rest_s']:.4f} s of {split['prove_s']:.4f} s; peak "
+        f"memory {split['peak_mb']:.1f} MB")
+    log(f"  launches a prove: "
+        f"{ {k: v for k, v in split['launches'].items() if v} }")
+    log(f"  collectives a prove (bytes handed to them): "
+        f"{split['collectives']}")
+    if not same or not ok:
+        raise AssertionError(f"{path}: the sharded proof differs from "
+                             "prove_device's or does not verify")
+    if checks is not None:
+        log(f"every kernel call of one more {path} prove against its plain "
+            "version")
+        got = _check_at_call(path, prove, checks)
+        if any(getattr(got, f) != getattr(proof, f) for f in fields):
+            raise AssertionError(f"{path}: the checked prove differs")
+    return path, counts, split["launches"]
+
+
+def _sharded_ntt_checks(dev, mesh):
+    """Phase 11 (c): the host twiddle tables' build, `sharded_ntt` against
+    `ops.ntt.ntt` and `sharded_intt` against `intt` (the four-step output
+    flattened is natural order), and `sharded_ntt_phase_times`, at each
+    SHARDED_NTT_LOGS size.  -> the launch counts from zero."""
+    import torch
+    from zukelang_tpu_torch.ops import field as F
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import ntt
+    from zukelang_tpu_torch.parallel import sharded
+    from zukelang_tpu_torch.params import FR
+
+    K.reset_counts()
+    rng = random.Random(11)
+    for logn in SHARDED_NTT_LOGS:
+        n = 1 << logn
+        log1, log2 = sharded._split_logs(logn, mesh.size)
+        sharded._twiddle_matrix.cache_clear()
+        t0 = time.time()
+        for inverse in (False, True):
+            sharded._twiddle_matrix(log1, log2, inverse)
+        table_s = time.time() - t0
+        x = F.pack_mont([rng.randrange(FR.p) for _ in range(n)], FR, dev)
+        y = mesh.gather(sharded.sharded_ntt(
+            mesh, x.reshape(FR.nl, 1 << log1, 1 << log2), log1, log2), 2)
+        yi = mesh.gather(sharded.sharded_intt(mesh, x, log1, log2), 2)
+        ok = (torch.equal(y.reshape(FR.nl, n), ntt.ntt(x))
+              and torch.equal(yi.reshape(FR.nl, n), ntt.intt(x)))
+        pt = sharded.sharded_ntt_phase_times(
+            mesh, x.reshape(FR.nl, 1 << log1, 1 << log2), log1, log2)
+        log(f"sharded NTT 2^{logn} = 2^{log1} x 2^{log2}: host twiddle "
+            f"tables (both directions, built anew) {table_s:.3f} s; "
+            f"sharded_ntt == "
+            f"ntt and sharded_intt == intt: {ok}; phases (s) "
+            f"{json.dumps(pt)}")
+        if not ok:
+            raise AssertionError(f"sharded NTT 2^{logn} differs from ntt")
+    _sync()
+    return dict(K.LAUNCHES)
+
+
+def _golden_msm(msm_log: int):
+    """The dry run's golden G1.dot, in a process of its own (compressed
+    bytes: the port's points are its own classes)."""
+    from zukelang_tpu_torch.parallel import dryrun
+    return dryrun.msm_golden(msm_log).to_compressed_bytes()
+
+
+def _scaling_world(mesh):
+    """`measure_msm_scaling(SCALING_MSM_LOG, c=DRYRUN_C)` and
+    `measure_ntt_scaling(SCALING_NTT_LOG)` at the world of `mesh`: the
+    harness's rank targets run on it in this process (a spawned world's
+    launches would not be this process's), with the harness's keys; the
+    efficiency of a world of one is 1 by its definition."""
+    from zukelang_tpu_torch.parallel import scaling
+    d = mesh.size
+    t = float(scaling.msm_rank(mesh, SCALING_MSM_LOG, DRYRUN_C,
+                               None)["time_s"])
+    msm_res = {d: {"time_s": t,
+                   "mterms_per_s": (1 << SCALING_MSM_LOG) / t / 1e6,
+                   "efficiency": 1.0}}
+    nt = scaling.ntt_rank(mesh, SCALING_NTT_LOG, 3, True)
+    t = float(nt["time_s"])
+    ntt_res = {d: {"time_s": t,
+                   "melems_per_s": (1 << SCALING_NTT_LOG) / t / 1e6,
+                   "efficiency": 1.0,
+                   "phase_breakdown": {k[len("phase."):]: float(v)
+                                       for k, v in nt.items()
+                                       if k.startswith("phase.")}}}
+    return msm_res, ntt_res
+
+
+def sharded_paths(dev):
+    """Phase 11: the sharded paths on a world of one NCCL rank in this
+    process (`launch.init_world1`): (a) Groth16 at 2^16 and (b) Pinocchio
+    ZK at 2^14 (pad 2^16) over `sharded_*_prove` against `prove_device`,
+    (c) the four-step NTT at 2^16 and 2^20, (d) the dry run's c = 8 G1
+    MSM at 2^GOLDEN_LOG against golden `G1.dot` (computed in a process
+    of its own beside (a)-(c)), then the scaling harness at the phase's
+    world (`_scaling_world`); (e) every kernel call of one more (a)
+    prove, of (d)'s MSM and of one NTT of (d)'s scaling target against
+    its plain version.  -> {path: (counts, launches a prove)}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from zukelang_tpu_torch.golden.curve import G1
+    from zukelang_tpu_torch.ops import field as F
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
+    from zukelang_tpu_torch.params import FR
+    from zukelang_tpu_torch.parallel import dryrun, launch, scaling, sharded
+
+    t_phase = time.time()
+    paths = {}
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            launch.init_world1("cuda") as mesh:
+        golden = pool.submit(_golden_msm, GOLDEN_LOG)
+        log(f"phase 11 (a): sharded Groth16 at 2^{LOG_CONSTRAINTS}, c = "
+            f"{SHARDED_C}, world of {mesh.size} ({mesh.device})")
+        checks = _sharded_call_checks()
+        path, counts, per = _sharded_prove_path(dev, mesh, "groth16", checks)
+        paths[path] = (counts, per)
+        log(f"phase 11 (b): sharded Pinocchio ZK at 2^{PIN_LOG_CONSTRAINTS}")
+        path, counts, per = _sharded_prove_path(dev, mesh, "pinocchio")
+        paths[path] = (counts, per)
+        log("phase 11 (c): the four-step NTT at "
+            f"{', '.join(f'2^{k}' for k in SHARDED_NTT_LOGS)}")
+        paths["sharded_ntt"] = (_sharded_ntt_checks(dev, mesh), None)
+        log(f"phase 11 (d): the dry run's c = {DRYRUN_C} G1 MSM at "
+            f"2^{GOLDEN_LOG}, then the scaling harness at world {mesh.size}")
+        sc, ks = dryrun.msm_inputs(GOLDEN_LOG)
+        pts = msm.fixed_base_mul(F.pack(ks, FR, dev), group="g1", c=4)
+        S = F.pack(sc, FR, dev)
+        K.reset_counts()
+        t0 = time.time()
+        got = sharded.sharded_msm(mesh, pts, S, "g1", c=DRYRUN_C)
+        _sync()
+        msm_s = time.time() - t0
+        scaled = _scaling_world(mesh)
+        _sync()
+        counts = dict(K.LAUNCHES)
+        path = f"sharded_msm_c{DRYRUN_C}_2^{GOLDEN_LOG}+scaling"
+        _check_path_launches(path, counts, SHARDED_MSM_KERNELS)
+        paths[path] = (counts, None)
+        for name, res in zip(
+                (f"measure_msm_scaling({SCALING_MSM_LOG}, c={DRYRUN_C})",
+                 f"measure_ntt_scaling({SCALING_NTT_LOG})"), scaled):
+            log(f"{name} at world {mesh.size}, its rank target in this "
+                f"process: {json.dumps(res)}")
+        log(f"every kernel call of the c = {DRYRUN_C} MSM and of one NTT "
+            "of the scaling target against its plain version")
+        again = _check_at_call("sharded c=8 MSM", lambda: sharded.sharded_msm(
+            mesh, pts, S, "g1", c=DRYRUN_C), checks)
+        _check_at_call(f"scaling NTT 2^{SCALING_NTT_LOG}",
+                       lambda: scaling.ntt_rank(mesh, SCALING_NTT_LOG, 1,
+                                                False), checks)
+        want = G1.of_compressed_bytes(golden.result())
+        log(f"sharded c = {DRYRUN_C} G1 MSM at 2^{GOLDEN_LOG}: {msm_s:.3f} s "
+            f"(first call); equal to golden G1.dot: {got == want}")
+        if got != want or again != want:
+            raise AssertionError("the sharded c=8 MSM differs from golden")
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return paths
 
 
 def main() -> int:
@@ -2090,6 +2499,10 @@ def main() -> int:
     paths[f"fft_2^{FFT_LOG}"] = fft_path(dev)
     log(f"phase 10 (d): bench_msm at 2^{MSM_BENCH_LOG}")
     paths[f"bench_msm_2^{MSM_BENCH_LOG}"] = bench_msm_path(dev)
+    log("phase 11: the sharded paths (parallel/), a world of one NCCL rank")
+    sharded = sharded_paths(dev)
+    paths.update(sharded)
+    provers += [p for p, (_c, per) in sharded.items() if per is not None]
 
     kernels = []
     for name in K.KERNELS:

@@ -6,10 +6,12 @@ every module of the port imports with both blocked, and the CLI compiles
 a program; and chip_smoke.py refuses to run (non-zero exit, no result)
 where there is no CUDA device instead of falling back to the CPU, and so
 do the card's entry points `profile_msm`, `probe_looped`,
-`profile_kernels`, `profile_prove`, `bench`, `bench_rung` and
-`bench_msm`, and the CLI's `prove` on its default device.  The modules of
-the witness evaluator, the FFT API, `util` and `bench_msm` are imported
-by name in the blocked process."""
+`profile_kernels`, `profile_prove`, `bench`, `bench_rung`, `bench_msm`
+and the multi-rank CLIs `parallel.scaling` and `parallel.dryrun`, and
+the CLI's `prove` on its default device.  The modules of the witness
+evaluator, the FFT API, `util`, `bench_msm` and the multi-rank slice
+(`parallel.sharded`, `scaling`, `dryrun`, `launch`) are imported by name
+in the blocked process."""
 
 import os
 import re
@@ -31,6 +33,7 @@ torch.set_num_threads(1)
 from zukelang_tpu_torch import bench_msm, probe_looped, profile_msm, util, vectors
 from zukelang_tpu_torch.core import flat, witness
 from zukelang_tpu_torch.ops import fft, kernels
+from zukelang_tpu_torch.parallel import dryrun, launch, scaling, sharded
 from zukelang_tpu_torch.protocols import groth16_device as gd
 from zukelang_tpu_torch.protocols import pinocchio_device as pd
 from zukelang_tpu_torch.rng import InjectedRng
@@ -117,6 +120,8 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                                          ("profile_prove", ["--log", "6"]),
                                          ("bench", []),
                                          ("bench_msm", ["6"]),
+                                         ("parallel.scaling", []),
+                                         ("parallel.dryrun", []),
                                          ("bench_rung", ["--proto", "groth16",
                                                          "--logn", "6", "--out",
                                                          "rung.json"])])

@@ -2,9 +2,9 @@
 
 The JAX package (`zukelang_tpu`) stays the reference.  This package runs
 Groth16 and Pinocchio (NonZK and ZK) keygen, prove and verify on an
-NVIDIA GPU with the Pallas kernels of the reference rewritten as CUDA C++
-for sm_90a (`csrc/`), and on the CPU through each kernel's plain PyTorch
-version.
+NVIDIA GPU, or sharded over a group of ranks, with the Pallas kernels of
+the reference rewritten as CUDA C++ for sm_90a (`csrc/`), and on the CPU
+through each kernel's plain PyTorch version.
 
 Layering (bottom to top), each module named after its JAX counterpart:
   params                   — curve constants, limb-32 Montgomery constants
@@ -14,7 +14,8 @@ Layering (bottom to top), each module named after its JAX counterpart:
   build                    — nvcc build of csrc/*.cu, loaded with ctypes
   ops/kernels              — kernel wrappers, plain versions, launch counts
   ops/field, ops/curve     — field and curve arithmetic on limb tensors
-  ops/ntt, ops/msm         — NTT, Pippenger and fixed-base MSM
+  ops/ntt, ops/msm         — NTT, Pippenger and fixed-base MSM, the whole
+                             MSM (msm_g1 / msm_g2)
   core/                    — the DSL (lang), its compiler (comp), circuits,
                              QAPs, polynomials; flat: flattened circuits
   engine/                  — the Engine seam: GoldenEngine, and
@@ -32,6 +33,12 @@ Layering (bottom to top), each module named after its JAX counterpart:
   bench_rung, bench        — one bench rung as a process; the bench that
                              runs the rungs and prints JSON records
   profile_prove            — stage and device times of a prove
+  parallel/                — the multi-rank slice over torch.distributed
+                             (NCCL on cards, gloo on the CPU): sharded
+                             MSM, four-step NTT, gate evaluation, witness
+                             reduction and Groth16 / Pinocchio proves;
+                             worlds of ranks (launch), the scaling harness
+                             and the dry run
 
 It imports no JAX and nothing of `zukelang_tpu`: what it takes from the
 JAX package it keeps as its own copy.

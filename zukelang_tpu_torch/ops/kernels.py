@@ -508,21 +508,24 @@ def point_add_carry_plain(p, car, idx):
     return point_add_plain(p, q)
 
 
-def hs_rounds(points, seg, add):
+def hs_rounds(points, seg, add, span: int = None):
     """Inclusive segmented prefix sum along the batch axis (seg sorted) by
     the Hillis-Steele rounds of the JAX package's `_hs_segmented_scan`
     (zukelang_tpu/ops/msm.py:119-143), each round one `add` of the
-    batch and its shift."""
+    batch and its shift.  A lane whose shifted partner lies in another
+    segment adds infinity (Z = 0: the sum is the lane's own point, word
+    for word), so the plain formula runs only where a round adds.  `span`
+    bounds the longest segment (default the batch): the rounds of shifts
+    at or beyond it change nothing and are left out."""
     n = seg.shape[-1]
     idx = torch.arange(n, device=seg.device)
     X, Y, Z = points
-    for d in range(max(1, (n - 1).bit_length())):
+    for d in range(max(1, ((span or n) - 1).bit_length())):
         sh = 1 << d
-        prev = tuple(torch.roll(v, sh, dims=-1) for v in (X, Y, Z))
         valid = (idx >= sh) & (seg == torch.roll(seg, sh))
-        added = add((X, Y, Z), prev)
-        X, Y, Z = (select_lanes(valid, a, v)
-                   for a, v in zip(added, (X, Y, Z)))
+        prev = (torch.roll(X, sh, dims=-1), torch.roll(Y, sh, dims=-1),
+                torch.roll(Z, sh, dims=-1) * valid)
+        X, Y, Z = add((X, Y, Z), prev)
     return X, Y, Z
 
 
@@ -535,19 +538,70 @@ def point_double_plain(p):
     return _dbl(p, _OPS[group_of(p[0])])
 
 
+class _IntField:
+    """Montgomery-domain arithmetic of `_dbl_formula` on Python integers:
+    Fq (ints) for G1, Fq2 ((c0, c1) pairs, u^2 = -1) for G2.  Every
+    result is the canonical field value, so the words equal the torch
+    formula's."""
+
+    def __init__(self, g2: bool):
+        self.g2, self.p = g2, FQ.p
+        self.rinv = pow(FQ.R, -1, FQ.p)
+
+    def mul(self, a, b):
+        p, r = self.p, self.rinv
+        if not self.g2:
+            return a * b * r % p
+        return ((a[0] * b[0] - a[1] * b[1]) * r % p,
+                (a[0] * b[1] + a[1] * b[0]) * r % p)
+
+    def add(self, a, b):
+        if not self.g2:
+            return (a + b) % self.p
+        return ((a[0] + b[0]) % self.p, (a[1] + b[1]) % self.p)
+
+    def sub(self, a, b):
+        if not self.g2:
+            return (a - b) % self.p
+        return ((a[0] - b[0]) % self.p, (a[1] - b[1]) % self.p)
+
+    def mul_many(self, xs, ys):
+        return [self.mul(x, y) for x, y in zip(xs, ys)]
+
+
 def point_double_n_plain(p, counts):
-    """The masked loop of the JAX package's window combine: max(counts)
-    doublings of the whole batch, a point keeping its value once its count
-    is reached.  counts: an int, or an (N,) integer tensor."""
-    o = _OPS[group_of(p[0])]
-    if not isinstance(counts, torch.Tensor):
-        for _ in range(max(0, int(counts))):
-            p = _dbl(p, o)
-        return tuple(p)
-    for d in range(max(0, int(counts.max())) if counts.numel() else 0):
-        dbl = _dbl(p, o)
-        p = tuple(o.sel(d < counts, a, b) for a, b in zip(dbl, p))
-    return tuple(p)
+    """Point i doubled counts[i] times (counts an int, or an (N,) integer
+    tensor; 0 or less keeps the point): the chained formula of the kernel
+    run point by point on Python integers.  A chain is sequential, so the
+    torch formula would pay its per-operation cost counts times whatever
+    the width; the arithmetic is exact, and the words are the torch
+    formula's (`point_double_plain` at every step)."""
+    g2 = group_of(p[0]) == "g2"
+    f = _IntField(g2)
+    n = p[0].shape[-1]
+    cs = (counts.tolist() if isinstance(counts, torch.Tensor)
+          else [int(counts)] * n)
+
+    def ints(coord):
+        if not g2:
+            return F.unpack(coord, FQ)
+        return list(zip(F.unpack(coord[0], FQ), F.unpack(coord[1], FQ)))
+
+    cols = [ints(c) for c in p]
+    out = [[], [], []]
+    for i in range(n):
+        pt = (cols[0][i], cols[1][i], cols[2][i])
+        for _ in range(cs[i]):
+            pt = _dbl_formula(pt, f)
+        for o_, v in zip(out, pt):
+            o_.append(v)
+
+    def packed(vals, like):
+        if not g2:
+            return F.pack(vals, FQ, like.device)
+        return torch.stack([F.pack([v[k] for v in vals], FQ, like.device)
+                            for k in (0, 1)])
+    return tuple(packed(v, c) for v, c in zip(out, p))
 
 
 def _coords(pts, what: str):

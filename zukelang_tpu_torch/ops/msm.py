@@ -144,13 +144,15 @@ def _prep_rows(points: C.AffinePoint) -> torch.Tensor:
     return torch.cat([top, bot], dim=1).t().contiguous()
 
 
-def _hs_segmented_scan(points: C.Point, seg: torch.Tensor) -> C.Point:
+def _hs_segmented_scan(points: C.Point, seg: torch.Tensor,
+                       span: int = None) -> C.Point:
     """Inclusive segmented prefix sum along the batch axis (seg sorted),
     log-depth: up to `kern.SEG_SCAN_SMALL_MAX` points all rounds in one K2
-    launch (`seg_scan_small`), above one K2 point add a round."""
+    launch (`seg_scan_small`), above one K2 point add a round (log2 of
+    `span`, the longest segment, rounds; default the batch)."""
     if seg.shape[-1] <= kern.SEG_SCAN_SMALL_MAX:
         return kern.seg_scan_small(points, seg.to(torch.int32))
-    return kern.hs_rounds(points, seg, C.point_add)
+    return kern.hs_rounds(points, seg, C.point_add, span)
 
 
 def _hs_total(points: C.Point) -> C.Point:
@@ -239,10 +241,9 @@ def _sort_gather(points, digits: torch.Tensor):
 def _bucket_sums(points: C.Point, digits: torch.Tensor,
                  n_buckets: int) -> C.Point:
     """Per-bucket sums of one window, collision-safe: sort, log-depth
-    segmented scan of K2 adds, scatter of the segment tails."""
-    pts, d_sorted = _sort_gather(points, digits)
-    return _scatter_tails(_hs_segmented_scan(pts, d_sorted), d_sorted,
-                          n_buckets)
+    segmented scan of K2 adds, scatter of the segment tails
+    (`_window_buckets` of one window)."""
+    return _window_buckets(points, digits[None], n_buckets)
 
 
 def _madd_chunk_scan(pts, d_sorted: torch.Tensor, K: int):
@@ -688,11 +689,120 @@ def msm_staged_deferred(points, scalars_std: torch.Tensor,
     return resolve
 
 
+def msm_staged_device(points, scalars_std: torch.Tensor, group: str = "g1",
+                      c: int = None) -> C.Point:
+    """One MSM (`msm_staged_deferred`, resolved) -> the batch-1 point on
+    the bases' device."""
+    return msm_staged_deferred(points, scalars_std, group, c)()
+
+
+def msm_many_staged_device(tables, scalars_mont_list, pmap,
+                           group: str = "g1", c: int = None) -> C.Point:
+    """B MSMs (`msm_many_staged_deferred`, resolved) -> the batch-B point
+    on the tables' device."""
+    return msm_many_staged_deferred(tables, scalars_mont_list, pmap,
+                                    group, c)()
+
+
 def msm_staged(points, scalars_std: torch.Tensor, group: str = "g1",
                c: int = None):
     """One MSM (`msm_staged_deferred`) -> a golden point on the host."""
-    res = msm_staged_deferred(points, scalars_std, group, c)()
+    res = msm_staged_device(points, scalars_std, group, c)
     return (C.unpack_g1 if group == "g1" else C.unpack_g2)(res)[0]
+
+
+# ---------------------------------------------------------------------------
+# The whole MSM of the JAX package's `msm_g1` / `msm_g2` (`_msm_impl`):
+# unsigned windows, each window's `_bucket_sums` then
+# `_weighted_bucket_reduce`, Horner from the top window.  Collision-safe
+# (general adds only), so it takes Jacobian bases and any width; the
+# term-sharded MSM (`parallel/sharded.py`) runs its window sums on each
+# rank's terms.
+# ---------------------------------------------------------------------------
+
+def _window_buckets(points: C.Point, digits: torch.Tensor,
+                    n_buckets: int) -> C.Point:
+    """`_bucket_sums` of every window at once: (W, N) digits -> (coord..,
+    W*n_buckets) bucket sums, window w's at columns [w*nb, (w+1)*nb).  One
+    stable sort of the rows, one gather of the W*N sorted points, the
+    Hillis-Steele rounds of a window (log2 N, each one K2 add of all W*N
+    lanes, segments by window and digit) and one scatter of the tails."""
+    W, n = digits.shape
+    dev = digits.device
+    d_sorted, order = torch.sort(digits, dim=-1, stable=True)
+    pts = tuple(x[..., order.reshape(-1)] for x in points)
+    wid = torch.arange(W, dtype=torch.int64, device=dev)[:, None]
+    seg = (wid * n_buckets + d_sorted).reshape(-1)
+    return _scatter_tails(_hs_segmented_scan(pts, seg, span=n), seg,
+                          W * n_buckets)
+
+
+def _window_reduce(buckets: C.Point, n_windows: int, K: int = 64) -> C.Point:
+    """`_weighted_bucket_reduce` of n_windows blocks of B buckets side by
+    side -> n_windows points: sum_{b>=1} b S_b of each block as the sum of
+    its suffix sums, every scan segmented by block.  Chunked (K7, K2) where
+    B is a multiple of K with at least two chunks, as the JAX function
+    chooses, else the log-depth K2 scans."""
+    width = buckets[0].shape[-1]
+    B = width // n_windows
+    dev = buckets[0].device
+    pos = torch.arange(width, device=dev)
+    col = pos % B
+    seg = (pos // B).to(torch.int32)
+    inf = C.infinity(_group(buckets), width, dev)
+    # the weight of S_0 is 0; the blocks reversed: rev[k] = S_{B-1-k}
+    flip = pos - col + (B - 1 - col)
+    rev = tuple(kern.select_lanes(col == 0, i, v)[..., flip]
+                for i, v in zip(inf, buckets))
+    chunked = B % K == 0 and B // K >= 2
+
+    def scan(p):
+        if chunked:
+            return _seg_scan_auto(p, seg, K)
+        return _hs_segmented_scan(p, seg, span=B)
+
+    sc = scan(rev)                                       # T_{B-1-k}
+    last = col == B - 1
+    sc = tuple(kern.select_lanes(last, i, v) for i, v in zip(inf, sc))
+    return tuple(v[..., B - 1::B] for v in scan(sc))     # drop T_0, sum
+
+
+def _window_sums(points: C.Point, digits: torch.Tensor, c: int) -> C.Point:
+    """Each window's weighted bucket sum, W points (low window first):
+    (W, N) unsigned digits of c bits over Jacobian bases."""
+    n_windows = digits.shape[0]
+    return _window_reduce(_window_buckets(points, digits, 1 << c), n_windows)
+
+
+def _horner_windows(wsums: C.Point, c: int) -> C.Point:
+    """Per-window sums (low window first) -> their combination by Horner,
+    high to low: acc = 2^c acc + W_w (one K2 doubling launch of count c
+    and one K2 add a window)."""
+    W = wsums[0].shape[-1]
+    acc = tuple(v[..., W - 1:] for v in wsums)
+    for w in range(W - 2, -1, -1):
+        acc = C.point_add(C.point_double_n(acc, c),
+                          tuple(v[..., w:w + 1] for v in wsums))
+    return acc
+
+
+def _msm_impl(points, scalars_std: torch.Tensor, c: int) -> C.Point:
+    if len(points) == 2:
+        points = C.affine_to_jac(points)
+    return _horner_windows(
+        _window_sums(points, _scalars_to_windows(scalars_std, c), c), c)
+
+
+def msm_g1(points, scalars_std: torch.Tensor, c: int = 8) -> C.Point:
+    """The whole G1 MSM of the JAX package's `msm_g1`: affine (X, Y) or
+    Jacobian bases, (8, N) standard-form scalars, unsigned windows of c
+    bits -> the batch-1 point on the bases' device."""
+    return _msm_impl(points, scalars_std, c)
+
+
+def msm_g2(points, scalars_std: torch.Tensor, c: int = 8) -> C.Point:
+    """`msm_g1` over G2."""
+    return _msm_impl(points, scalars_std, c)
 
 
 # ---------------------------------------------------------------------------
