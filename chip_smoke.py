@@ -911,13 +911,14 @@ def groth16_path(dev, log_constraints: int, sample: bool = False):
     on the keygen's small batch; then one more prove's kernel calls
     against their plain versions (`prove_path_kernel_checks`)."""
     import torch
-    from zukelang_tpu_torch import bench_lib, bench_rung, profile_prove
+    from zukelang_tpu_torch import bench_lib, bench_rung, profile_prove, util
     from zukelang_tpu_torch.ops import kernels as K
     from zukelang_tpu_torch.ops import msm
 
     t_phase = time.time()
     msm.fixed_base_table_device.cache_clear()   # keygen builds its tables
     K.reset_counts()
+    util.reset()
     out = {}
     keygen_seen = _capture_inputs(
         lambda: out.setdefault("run", bench_lib.run_groth16(
@@ -941,6 +942,10 @@ def groth16_path(dev, log_constraints: int, sample: bool = False):
         f"terms per prove: {res['msm_terms_per_prove']})")
     log(f"launches per prove: {run.prove_launches}")
     log(f"launches in keygen: {run.keygen_launches}")
+    names = [s.name for s in util.spans()]
+    log(f"collision-safe MSM re-runs: {names.count('zk.msm.safe_rerun')} "
+        f"in {names.count('zk.prove.msm_wait')} resolves (the program's "
+        "spans)")
     t0 = time.time()
     run.inst.pack_witness(dev)
     torch.cuda.synchronize()

@@ -27,6 +27,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from .. import util
 from ..golden.field import Fr
 from ..ops import field as F
 from ..params import FR
@@ -42,8 +43,11 @@ def pack_mont_np(values, spec=FR) -> np.ndarray:
 
 def pack_witness_values(values: Sequence[int], device=None) -> torch.Tensor:
     """Witness ints by column -> Montgomery (nl, V+1) int32 tensor with a
-    trailing zero column (the padding target of dense rows)."""
-    return F._as_tensor(pack_mont_np(list(values) + [0]), device)
+    trailing zero column (the padding target of dense rows).  Span
+    `zk.flat.pack_witness`, host-only where it makes no device tensor."""
+    host = device is None or torch.device(device).type == "cpu"
+    with util.stage("zk.flat.pack_witness", host=host):
+        return F._as_tensor(pack_mont_np(list(values) + [0]), device)
 
 
 @dataclass
@@ -102,12 +106,14 @@ def flat_side(idx, coefs, n_pad_col: int) -> FlatSide:
 def from_arrays(n_vars: int, logn: int, l, r, lhs) -> FlatCircuit:
     """A flat circuit over the columns 0..n_vars-1 from plain arrays: each
     of l, r, lhs is a pair (idx (G, K), coefs (G, K)) as `flat_side`
-    takes it, padded with column n_vars."""
-    cols = list(range(n_vars))
-    sides = [flat_side(i, c, n_vars) for i, c in (l, r, lhs)]
-    return FlatCircuit(vars_sorted=cols, var_index={v: v for v in cols},
-                       n_gates=sides[0].idx.shape[0], logn=logn,
-                       l=sides[0], r=sides[1], lhs=sides[2])
+    takes it, padded with column n_vars.  Span `zk.flat.from_arrays`
+    (host-only)."""
+    with util.stage("zk.flat.from_arrays", host=True, vars=n_vars):
+        cols = list(range(n_vars))
+        sides = [flat_side(i, c, n_vars) for i, c in (l, r, lhs)]
+        return FlatCircuit(vars_sorted=cols, var_index={v: v for v in cols},
+                           n_gates=sides[0].idx.shape[0], logn=logn,
+                           l=sides[0], r=sides[1], lhs=sides[2])
 
 
 def column_var(col: int):

@@ -21,13 +21,12 @@ and that of the device protocols (`_gate_eval` :167,
 from __future__ import annotations
 
 import functools
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import params
+from .. import params, util
 from ..core import flat as flat_mod
 from ..core import poly
 from ..core.qap import QAP
@@ -46,6 +45,9 @@ DEFAULT_MSM_WINDOW = None
 # window): `JaxEngine`'s, the JAX `fixed_base_mul` default.  Its tables
 # build in seconds on the plain versions too (c = 16's take many minutes).
 DEFAULT_FB_WINDOW = 8
+
+# `TorchEngine`'s host spans
+PACK, UNPACK = "zk.engine.pack", "zk.engine.unpack"
 
 
 def _reduce(step, logn: int, sides, w: torch.Tensor):
@@ -157,6 +159,15 @@ def transpose_matvec(side: flat_mod.FlatSide, weights: torch.Tensor,
 # The engine
 # ---------------------------------------------------------------------------
 
+def _nbytes(x) -> int:
+    """Bytes of the tensors in x: a tensor, or tuples of them."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, tuple):
+        return sum(_nbytes(v) for v in x)
+    return 0
+
+
 def _unpack_fr(t: torch.Tensor) -> List[Fr]:
     return [Fr(v) for v in F.unpack_mont(t, FR)]
 
@@ -176,8 +187,9 @@ class TorchEngine(Engine):
     another (the tests pass "cpu", which takes each kernel's plain
     version).  `msm_window` pins the MSM window width (None: the module
     default); fixed-base batches and powers take `DEFAULT_FB_WINDOW`.
-    `host_s` sums the host seconds spent packing golden points and
-    scalars into limb batches and unpacking the results."""
+    `host_s` sums the spans of packing golden points and scalars into
+    limb batches (`zk.engine.pack`) and of unpacking the results, the
+    wait for them included (`zk.engine.unpack`)."""
 
     name = "torch"
 
@@ -188,22 +200,22 @@ class TorchEngine(Engine):
         self.host_s = 0.0
         self._flat_cache: Dict[int, Tuple[QAP, flat_mod.FlatCircuit]] = {}
 
-    # -- host packing and unpacking, timed ------------------------------------
-    def _host(self, fn, *args):
-        """fn(*args), its seconds added to `host_s`; the card is
-        synchronised first, so that its work is not counted."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        self.host_s += time.perf_counter() - t0
+    # -- host packing and unpacking, timed ----------------------------------
+    def _host(self, name: str, fn, *args):
+        """fn(*args) under the span `name`, with the device bytes it
+        makes or reads as an attribute; its seconds added to `host_s`."""
+        with util.stage(name) as span:
+            out = fn(*args)
+            span.attrs["bytes"] = _nbytes((out,) + args)
+        self.host_s += span.seconds
         return out
 
     def _unpack(self, group: str, p: C.Point, n: int = None) -> list:
         """The first n points of a batch -> golden points."""
         if n is not None:
             p = tuple(x[..., :n] for x in p)
-        return self._host(C.unpack_g1 if group == "g1" else C.unpack_g2, p)
+        return self._host(UNPACK, C.unpack_g1 if group == "g1"
+                          else C.unpack_g2, p)
 
     # -- MSM -------------------------------------------------------------------
     def _dot(self, group: str, points, scalars):
@@ -214,10 +226,10 @@ class TorchEngine(Engine):
         if n == 0:
             return zero
         npad = msm_mod.padded_width(n)
-        P = self._host(C.pack_affine, list(points) + [zero] * (npad - n),
-                       group, self.device)
-        S = self._host(F.pack, [s.n for s in scalars] + [0] * (npad - n), FR,
-                       self.device)
+        P = self._host(PACK, C.pack_affine,
+                       list(points) + [zero] * (npad - n), group, self.device)
+        S = self._host(PACK, F.pack, [s.n for s in scalars] + [0] * (npad - n),
+                       FR, self.device)
         res = msm_mod.msm_staged_deferred(P, S, group, self.msm_window)()
         return self._unpack(group, res)[0]
 
@@ -233,8 +245,8 @@ class TorchEngine(Engine):
         if n == 0:
             return []
         npad = msm_mod.padded_width(n, msm_mod.FB_MIN_LOG)
-        S = self._host(F.pack, [s.n for s in scalars] + [0] * (npad - n), FR,
-                       self.device)
+        S = self._host(PACK, F.pack, [s.n for s in scalars] + [0] * (npad - n),
+                       FR, self.device)
         return self._unpack(group, msm_mod.fixed_base_mul(
             S, group=group, c=DEFAULT_FB_WINDOW), n)
 
@@ -272,9 +284,9 @@ class TorchEngine(Engine):
         if qap.domain != "ntt":
             return GoldenEngine().qap_witness_reduction(qap, sol)
         fc = self._flat(qap)
-        w = self._host(fc.pack_witness, sol, self.device)
+        w = self._host(PACK, fc.pack_witness, sol, self.device)
         a, b, h = run_witness_reduction(fc, w)
-        return tuple(poly.normalize(self._host(_unpack_fr, x))
+        return tuple(poly.normalize(self._host(UNPACK, _unpack_fr, x))
                      for x in (a, b, h))
 
     def qap_eval_at(self, qap: QAP, x: Fr):
@@ -287,7 +299,8 @@ class TorchEngine(Engine):
         nv = len(fc.vars_sorted)
         return tuple(
             dict(zip(fc.vars_sorted,
-                     self._host(_unpack_fr, transpose_matvec(side, lag, nv))))
+                     self._host(UNPACK, _unpack_fr,
+                                transpose_matvec(side, lag, nv))))
             for side in (fc.l, fc.r, fc.lhs))
 
     def qap_eval(self, qap, sol):

@@ -41,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from .. import util
 from ..golden.curve import G1, G2
 from ..params import FQ, FR
 from . import curve as C
@@ -628,11 +629,14 @@ def msm_many_staged_deferred(tables, scalars_mont_list, pmap,
         c = auto_window(n)
     S = torch.stack(list(scalars_mont_list))
     precs, dig_blocks, bases = _many_digit_blocks(tables, S, pmap, c)
+    util.annotate(c=c, windows=dig_blocks.shape[0] // len(pmap))
     res, col = _msm_fused_impl(precs, dig_blocks, bases, len(pmap), c, group)
 
     def resolve():
         if bool(col):
-            return _msm_many_safe_impl(tables, S, pmap, c, group)
+            with util.stage("zk.msm.safe_rerun", group=group,
+                            msms=len(pmap)):
+                return _msm_many_safe_impl(tables, S, pmap, c, group)
         return res
 
     return resolve
@@ -679,11 +683,13 @@ def msm_staged_deferred(points, scalars_std: torch.Tensor,
         return lambda: res
     _check_width(n)
     precs, digits, bases = _single_blocks(points, scalars_std, c)
+    util.annotate(c=c, windows=digits.shape[0])
     res, col = _msm_fused_impl(precs, digits, bases, 1, c, group)
 
     def resolve():
         if bool(col):
-            return _msm_safe_impl(points, scalars_std, c, group)
+            with util.stage("zk.msm.safe_rerun", group=group, msms=1):
+                return _msm_safe_impl(points, scalars_std, c, group)
         return res
 
     return resolve

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import params
+from .. import params, util
 from ..params import FR
 from . import field as F
 from . import kernels
@@ -57,10 +57,12 @@ def _mont_powers(base: int, count: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _twiddles(logn: int, inverse: bool, device) -> torch.Tensor:
-    """(nl, N/2) Montgomery twiddles w^0 .. w^(N/2 - 1)."""
+    """(nl, N/2) Montgomery twiddles w^0 .. w^(N/2 - 1), built on the
+    host once a shape (span `zk.ntt.twiddles`)."""
     n = 1 << logn
-    return F._as_tensor(_mont_powers(root_for(logn, inverse), max(1, n // 2)),
-                        device)
+    with util.stage("zk.ntt.twiddles", logn=logn, inverse=inverse):
+        return F._as_tensor(_mont_powers(root_for(logn, inverse),
+                                         max(1, n // 2)), device)
 
 
 @functools.lru_cache(maxsize=None)

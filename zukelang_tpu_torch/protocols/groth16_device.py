@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import params
+from .. import params, util
 from .. import serialize as ser
 from ..core import flat as flat_mod
 from ..engine import torch_engine as te
@@ -122,21 +122,32 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
                   rng, device=None) -> Tuple[DeviceCRS, DeviceVKey]:
     """Groth16 setup on `device` (default: the card).  mids/ios are the
     circuit partition; the trapdoor is drawn as alpha, beta, gamma,
-    delta, tau."""
+    delta, tau.  Runs under a span `zk.keygen` with a new keygen id."""
     device = te.checked_device(device)
+    with util.stage("zk.keygen", request=util.next_request(),
+                    n=fc.domain_size):
+        return _keygen(fc, mids, ios, rng, device)
+
+
+def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
+            device) -> Tuple[DeviceCRS, DeviceVKey]:
     alpha, beta, gamma, delta, tau = (rng.fr() for _ in range(5))
     n = fc.domain_size
     r = params.R
 
     # per-variable evaluations at tau (transpose matvec)
-    lag = te._lagrange_at(fc.logn, tau.n, device)
+    with util.stage("zk.keygen.lagrange"):
+        lag = te._lagrange_at(fc.logn, tau.n, device)
     nv = len(fc.vars_sorted)
-    v_at, w_at, y_at = (te.transpose_matvec(side, lag, nv)
-                        for side in (fc.l, fc.r, fc.lhs))
-    # L_k(tau) = beta*v_k + alpha*w_k + y_k, then /delta (mids), /gamma (ios)
-    l_at = F.add(F.add(F.mont_mul(v_at, F.const_mont(beta.n, nv, FR, device), FR),
-                       F.mont_mul(w_at, F.const_mont(alpha.n, nv, FR, device), FR),
-                       FR), y_at, FR)
+    with util.stage("zk.keygen.matvec"):
+        v_at, w_at, y_at = (te.transpose_matvec(side, lag, nv)
+                            for side in (fc.l, fc.r, fc.lhs))
+        # L_k(tau) = beta*v_k + alpha*w_k + y_k, then /delta (mids),
+        # /gamma (ios)
+        l_at = F.add(F.add(
+            F.mont_mul(v_at, F.const_mont(beta.n, nv, FR, device), FR),
+            F.mont_mul(w_at, F.const_mont(alpha.n, nv, FR, device), FR),
+            FR), y_at, FR)
     mids_idx = np.array([fc.var_index[v] for v in sorted(mids)], dtype=np.int64)
     ios_idx = np.array([fc.var_index[v] for v in sorted(ios)], dtype=np.int64)
     dinv = pow(delta.n, -1, r)
@@ -148,31 +159,44 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
 
     # host: powers of tau and the Z(tau) ladder (n entries; tau^n enters
     # the proof only through Z(tau) inside tiztd)
-    ti, acc = [], 1
-    for _ in range(n):
-        ti.append(acc)
-        acc = acc * tau.n % r
-    ztd = (pow(tau.n, n, r) - 1) * dinv % r
-    tizd = [ti[i] * ztd % r for i in range(n - 1)]
+    with util.stage("zk.keygen.tau_powers", host=True, n=n):
+        ti, acc = [], 1
+        for _ in range(n):
+            ti.append(acc)
+            acc = acc * tau.n % r
+        ztd = (pow(tau.n, n, r) - 1) * dinv % r
+        tizd = [ti[i] * ztd % r for i in range(n - 1)]
 
     # the three G1 tables share one batched inversion in to_affine
-    ti1, tiztd, ltd_mid = _affine_many(
-        (_fixed_base_std(ti, "g1", device),
-         _fixed_base_std(tizd, "g1", device),
-         _fixed_base_mont(scaled(mids_idx, dinv), "g1")))
-    ti2 = C.to_affine(_fixed_base_std(ti, "g2", device))
-    ltgm_io_pts = C.unpack_g1(_fixed_base_mont(scaled(ios_idx, ginv), "g1"))
+    with util.stage("zk.keygen.fixed_base", group="g1", batch="crs"):
+        g1_parts = (_fixed_base_std(ti, "g1", device),
+                    _fixed_base_std(tizd, "g1", device),
+                    _fixed_base_mont(scaled(mids_idx, dinv), "g1"))
+    with util.stage("zk.keygen.to_affine", group="g1"):
+        ti1, tiztd, ltd_mid = _affine_many(g1_parts)
+    del g1_parts        # the Jacobian tables go before the G2 table comes
+    with util.stage("zk.keygen.fixed_base", group="g2", batch="crs"):
+        g2_part = _fixed_base_std(ti, "g2", device)
+    with util.stage("zk.keygen.to_affine", group="g2"):
+        ti2 = C.to_affine(g2_part)
+    del g2_part
+    with util.stage("zk.keygen.fixed_base", group="g1", batch="vkey"):
+        ltgm_io_pts = C.unpack_g1(
+            _fixed_base_mont(scaled(ios_idx, ginv), "g1"))
 
-    g1, g2 = G1.generator(), G2.generator()
-    crs = DeviceCRS(
-        alpha_g1=g1 * alpha, beta_g1=g1 * beta, beta_g2=g2 * beta,
-        delta_g1=g1 * delta, delta_g2=g2 * delta,
-        ti1=ti1, ti2=ti2, ltd_mid=ltd_mid, tiztd=tiztd,
-        mids_idx=mids_idx.astype(np.int32), n=n)
-    vkey = DeviceVKey(
-        one1=g1, ltgm_io={v: ltgm_io_pts[i] for i, v in enumerate(sorted(ios))},
-        one2=g2, gm=g2 * gamma, d=g2 * delta,
-        ab=pairing(g1 * alpha, g2 * beta), alpha_g1=g1 * alpha, beta_g2=g2 * beta)
+    with util.stage("zk.keygen.host_points", host=True):
+        g1, g2 = G1.generator(), G2.generator()
+        crs = DeviceCRS(
+            alpha_g1=g1 * alpha, beta_g1=g1 * beta, beta_g2=g2 * beta,
+            delta_g1=g1 * delta, delta_g2=g2 * delta,
+            ti1=ti1, ti2=ti2, ltd_mid=ltd_mid, tiztd=tiztd,
+            mids_idx=mids_idx.astype(np.int32), n=n)
+        vkey = DeviceVKey(
+            one1=g1,
+            ltgm_io={v: ltgm_io_pts[i] for i, v in enumerate(sorted(ios))},
+            one2=g2, gm=g2 * gamma, d=g2 * delta,
+            ab=pairing(g1 * alpha, g2 * beta), alpha_g1=g1 * alpha,
+            beta_g2=g2 * beta)
     return crs, vkey
 
 
@@ -180,34 +204,54 @@ def prove_device(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
                  witness_mont: torch.Tensor, rng):
     """Groth16 prove (groth16.ml:123-161).  witness_mont: (8, V+1)
     Montgomery witness (flat.pack_witness layout), moved to the CRS's
-    device."""
+    device.  Runs under a span `zk.prove` with a new proof id."""
+    with util.stage("zk.prove", request=util.next_request()):
+        return _prove(crs, fc, witness_mont, rng)
+
+
+def _prove(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
+           witness_mont: torch.Tensor, rng) -> Proof:
     r_sc = rng.fr()
     s_sc = rng.fr()
-    witness_mont = witness_mont.to(crs.ti1[0].device)
-    a_comb, b_comb, h = te.run_witness_reduction(fc, witness_mont)
-
+    dev = crs.ti1[0].device
+    nbytes = (witness_mont.numel() * witness_mont.element_size()
+              if witness_mont.device != dev else 0)
+    with util.stage("zk.prove.witness_to_device", bytes=nbytes):
+        witness_mont = witness_mont.to(dev)
     n = crs.n
+    with util.stage("zk.prove.reduction", n=n):
+        a_comb, b_comb, h = te.run_witness_reduction(fc, witness_mont)
+
     npad = msm_mod.padded_width(n)
     c_w = DEFAULT_MSM_WINDOW
-    mids = torch.from_numpy(crs.mids_idx.astype(np.int64)).to(
-        witness_mont.device)
     # the whole G1 side (A, B1, H, C-mid) is one batch of four MSMs over
     # three tables; the G2 MSM is launched before either result is read
-    g1_tables = tuple(_fit_points(t, npad)
-                      for t in (crs.ti1, crs.tiztd, crs.ltd_mid))
-    g1_scalars = [_pad_scalars(s, npad) for s in (
-        a_comb, b_comb, h[:, :max(1, n - 1)], witness_mont[:, mids])]
-    g1_resolve = msm_mod.msm_many_staged_deferred(
-        g1_tables, g1_scalars, pmap=(0, 0, 1, 2), group="g1", c=c_w)
-    b_resolve = _msm_device_deferred(crs.ti2, b_comb, "g2", c=c_w)
-    A_sum, B1_sum, H_sum, Cmid = C.unpack_g1(g1_resolve())
-    (B_sum,) = C.unpack_g2(b_resolve())
+    with util.stage("zk.prove.msm_launch", group="g1", msms=4, n=npad):
+        mids = torch.from_numpy(crs.mids_idx.astype(np.int64)).to(dev)
+        g1_tables = tuple(_fit_points(t, npad)
+                          for t in (crs.ti1, crs.tiztd, crs.ltd_mid))
+        g1_scalars = [_pad_scalars(s, npad) for s in (
+            a_comb, b_comb, h[:, :max(1, n - 1)], witness_mont[:, mids])]
+        g1_resolve = msm_mod.msm_many_staged_deferred(
+            g1_tables, g1_scalars, pmap=(0, 0, 1, 2), group="g1", c=c_w)
+    with util.stage("zk.prove.msm_launch", group="g2", msms=1, n=npad):
+        b_resolve = _msm_device_deferred(crs.ti2, b_comb, "g2", c=c_w)
+    with util.stage("zk.prove.msm_wait", group="g1"):
+        g1_sums = g1_resolve()
+    with util.stage("zk.prove.unpack", group="g1"):
+        A_sum, B1_sum, H_sum, Cmid = C.unpack_g1(g1_sums)
+    with util.stage("zk.prove.msm_wait", group="g2"):
+        b_sum = b_resolve()
+    with util.stage("zk.prove.unpack", group="g2"):
+        (B_sum,) = C.unpack_g2(b_sum)
 
-    a = crs.alpha_g1 + A_sum + crs.delta_g1 * r_sc
-    b = crs.beta_g2 + B_sum + crs.delta_g2 * s_sc
-    b1 = crs.beta_g1 + B1_sum + crs.delta_g1 * s_sc
-    c = (Cmid + H_sum + a * s_sc + b1 * r_sc - crs.delta_g1 * (r_sc * s_sc))
-    return Proof(a=a, b=b, c=c)
+    with util.stage("zk.prove.assemble", host=True):
+        a = crs.alpha_g1 + A_sum + crs.delta_g1 * r_sc
+        b = crs.beta_g2 + B_sum + crs.delta_g2 * s_sc
+        b1 = crs.beta_g1 + B1_sum + crs.delta_g1 * s_sc
+        c = (Cmid + H_sum + a * s_sc + b1 * r_sc
+             - crs.delta_g1 * (r_sc * s_sc))
+        return Proof(a=a, b=b, c=c)
 
 
 def verify(public: Dict, vkey: DeviceVKey, proof) -> bool:
