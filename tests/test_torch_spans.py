@@ -94,6 +94,15 @@ def test_prove_counts_from_spans(run):
             if s.name == "zk.prove.witness_to_device"] == [0, 0]
 
 
+def test_one_assemble_span_a_prove(run):
+    """The host library's assembly runs once a prove, inside it: the
+    count of `zk.prove.assemble` spans is the count of proves."""
+    proves = [s for s in run["spans"] if s.name == "zk.prove"]
+    assembles = [s for s in run["spans"] if s.name == "zk.prove.assemble"]
+    assert len(assembles) == len(proves) == 2
+    assert sorted(s.parent for s in assembles) == sorted(p.id for p in proves)
+
+
 def test_keygen_spans_share_one_keygen_id(run):
     keygens = [s for s in run["spans"] if s.name == "zk.keygen"]
     assert len(keygens) == 1

@@ -1,9 +1,12 @@
 // The port's copy of native/zukelang_native.cpp, the JAX package's host
 // backend: BLS12-381 Fr/Fq arithmetic, G1 curve ops, Pippenger MSM, a
-// radix-2 NTT over Fr and the optimal ate pairing.
+// radix-2 NTT over Fr and the optimal ate pairing; beyond it, the G2 group
+// law and the Groth16 proof assembly.
 // zukelang_tpu_torch/native.py builds and loads this file and binds the Fr
-// batches, the NTT, the G1 scalar multiplication and MSM and the pairing;
-// the protocols verify through the pairing.
+// batches, the NTT, G1 and G2 scalar multiplication, the G1 MSM, the G2
+// addition, the Groth16 proof assembly and the pairing; the Groth16
+// provers assemble their proofs here, and the protocols verify through the
+// pairing.
 //
 // Plays the role blst's C library plays for the OCaml reference
 // (dune-project:23, curve.ml:74-221): the fast *host-side*
@@ -13,8 +16,9 @@
 // small/latency-sensitive MSMs where a device round-trip is not worth it.
 //
 // ABI: extern "C", all field elements little-endian byte arrays in
-// standard (non-Montgomery) form: Fr = 32 bytes, Fq = 48 bytes.  Points
-// are affine (x, y, infinity_flag) unless stated.
+// standard (non-Montgomery) form: Fr = 32 bytes, Fq = 48 bytes, Fq2 = 96
+// bytes (c0, c1).  Points are affine (x, y, infinity_flag) unless stated:
+// G1 97 bytes, G2 193 bytes.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libzukelang_native.so \
 //        zukelang_native.cpp   (driven by zukelang_tpu_torch/native.py)
@@ -135,39 +139,31 @@ static inline Fp<N> fp_sub(const Fp<N> &a, const Fp<N> &b,
   return r;
 }
 
-// CIOS Montgomery multiply
+// CIOS Montgomery multiply without the two extra words: both moduli's top
+// limbs are below (2^64 - 1) / 2 - 1 (Fq 0x1a01..., Fr 0x73ed...), so the
+// running value stays below 2p and fits N words.
 template <int N>
 static inline Fp<N> fp_mul(const Fp<N> &a, const Fp<N> &b,
                            const FpParams<N> &P) {
-  u64 t[N + 2];
-  memset(t, 0, sizeof(t));
+  u64 t[N] = {0};
   for (int i = 0; i < N; i++) {
-    u64 carry = 0;
-    for (int j = 0; j < N; j++) {
-      u128 s = (u128)t[j] + (u128)a.v[i] * b.v[j] + carry;
-      t[j] = (u64)s;
-      carry = (u64)(s >> 64);
-    }
-    u128 s = (u128)t[N] + carry;
-    t[N] = (u64)s;
-    t[N + 1] = (u64)(s >> 64);
-
-    u64 m = t[0] * P.ninv;
-    u128 s2 = (u128)t[0] + (u128)m * P.mod[0];
-    carry = (u64)(s2 >> 64);
+    u128 x = (u128)a.v[0] * b.v[i] + t[0];
+    u64 hi_a = (u64)(x >> 64);
+    u64 m = (u64)x * P.ninv;
+    u128 y = (u128)m * P.mod[0] + (u64)x;
+    u64 hi_c = (u64)(y >> 64);
     for (int j = 1; j < N; j++) {
-      u128 ss = (u128)t[j] + (u128)m * P.mod[j] + carry;
-      t[j - 1] = (u64)ss;
-      carry = (u64)(ss >> 64);
+      x = (u128)a.v[j] * b.v[i] + t[j] + hi_a;
+      hi_a = (u64)(x >> 64);
+      y = (u128)m * P.mod[j] + (u64)x + hi_c;
+      hi_c = (u64)(y >> 64);
+      t[j - 1] = (u64)y;
     }
-    s2 = (u128)t[N] + carry;
-    t[N - 1] = (u64)s2;
-    t[N] = t[N + 1] + (u64)(s2 >> 64);
-    t[N + 1] = 0;
+    t[N - 1] = hi_a + hi_c;
   }
   Fp<N> r;
   memcpy(r.v, t, sizeof(r.v));
-  if (t[N] || fp_geq<N>(r.v, P.mod)) fp_sub_mod<N>(r.v, P.mod);
+  if (fp_geq<N>(r.v, P.mod)) fp_sub_mod<N>(r.v, P.mod);
   return r;
 }
 
@@ -232,75 +228,192 @@ typedef Fp<6> Fq;
 typedef Fp<4> Fr;
 
 // ---------------------------------------------------------------------------
-// G1 (Jacobian over Fq, Montgomery form coordinates)
+// Fq2 = Fq[u]/(u^2+1), Montgomery form coefficients
 // ---------------------------------------------------------------------------
 
-struct G1 {
-  Fq x, y, z;  // z == 0 -> infinity
-};
+struct Fq2v { Fq c0, c1; };
 
-static inline bool g1_is_inf(const G1 &p) { return fp_is_zero<6>(p.z); }
-
-static G1 g1_double(const G1 &p) {
-  if (g1_is_inf(p) || fp_is_zero<6>(p.y)) {
-    G1 r;
-    r.x = p.x;
-    r.y = p.y;
-    r.z = Fq::zero();
-    return r;
+static inline Fq2v fq2_zero() { return {Fq::zero(), Fq::zero()}; }
+static inline Fq2v fq2_one() {
+  Fq2v r = fq2_zero();
+  memcpy(r.c0.v, FQ.one, sizeof(r.c0.v));
+  return r;
+}
+static inline bool fq2_is_zero(const Fq2v &a) {
+  return fp_is_zero<6>(a.c0) && fp_is_zero<6>(a.c1);
+}
+static inline bool fq2_eq(const Fq2v &a, const Fq2v &b) {
+  return fp_eq<6>(a.c0, b.c0) && fp_eq<6>(a.c1, b.c1);
+}
+static inline Fq2v fq2_add(const Fq2v &a, const Fq2v &b) {
+  return {fp_add<6>(a.c0, b.c0, FQ), fp_add<6>(a.c1, b.c1, FQ)};
+}
+static inline Fq2v fq2_sub(const Fq2v &a, const Fq2v &b) {
+  return {fp_sub<6>(a.c0, b.c0, FQ), fp_sub<6>(a.c1, b.c1, FQ)};
+}
+static inline Fq2v fq2_neg(const Fq2v &a) {
+  return {fp_sub<6>(Fq::zero(), a.c0, FQ), fp_sub<6>(Fq::zero(), a.c1, FQ)};
+}
+static inline Fq2v fq2_mul(const Fq2v &a, const Fq2v &b) {
+  // Karatsuba over u^2 = -1
+  Fq v0 = fp_mul<6>(a.c0, b.c0, FQ);
+  Fq v1 = fp_mul<6>(a.c1, b.c1, FQ);
+  Fq t = fp_mul<6>(fp_add<6>(a.c0, a.c1, FQ), fp_add<6>(b.c0, b.c1, FQ), FQ);
+  return {fp_sub<6>(v0, v1, FQ), fp_sub<6>(fp_sub<6>(t, v0, FQ), v1, FQ)};
+}
+static inline Fq2v fq2_sqr(const Fq2v &a) {
+  Fq t0 = fp_mul<6>(fp_add<6>(a.c0, a.c1, FQ), fp_sub<6>(a.c0, a.c1, FQ), FQ);
+  Fq m = fp_mul<6>(a.c0, a.c1, FQ);
+  return {t0, fp_add<6>(m, m, FQ)};
+}
+static inline Fq2v fq2_conj(const Fq2v &a) {
+  return {a.c0, fp_sub<6>(Fq::zero(), a.c1, FQ)};
+}
+static inline Fq2v fq2_inv(const Fq2v &a) {
+  Fq norm = fp_add<6>(fp_mul<6>(a.c0, a.c0, FQ), fp_mul<6>(a.c1, a.c1, FQ), FQ);
+  Fq ninv = fp_inv<6>(norm, FQ);
+  return {fp_mul<6>(a.c0, ninv, FQ),
+          fp_sub<6>(Fq::zero(), fp_mul<6>(a.c1, ninv, FQ), FQ)};
+}
+static Fq2v fq2_pow(const Fq2v &a, const u64 *e, int elimbs) {
+  Fq2v result = fq2_one();
+  bool started = false;
+  for (int i = elimbs - 1; i >= 0; i--) {
+    for (int b = 63; b >= 0; b--) {
+      if (started) result = fq2_sqr(result);
+      if ((e[i] >> b) & 1) {
+        if (!started) { result = a; started = true; }
+        else result = fq2_mul(result, a);
+      }
+    }
   }
-  Fq A = fp_sqr<6>(p.x, FQ);
-  Fq B = fp_sqr<6>(p.y, FQ);
-  Fq C = fp_sqr<6>(B, FQ);
-  Fq t = fp_add<6>(p.x, B, FQ);
-  Fq D = fp_sub<6>(fp_sub<6>(fp_sqr<6>(t, FQ), A, FQ), C, FQ);
-  D = fp_add<6>(D, D, FQ);
-  Fq E = fp_add<6>(fp_add<6>(A, A, FQ), A, FQ);
-  Fq F = fp_sqr<6>(E, FQ);
-  G1 r;
-  r.x = fp_sub<6>(F, fp_add<6>(D, D, FQ), FQ);
-  Fq c8 = fp_add<6>(C, C, FQ);
-  c8 = fp_add<6>(c8, c8, FQ);
-  c8 = fp_add<6>(c8, c8, FQ);
-  r.y = fp_sub<6>(fp_mul<6>(E, fp_sub<6>(D, r.x, FQ), FQ), c8, FQ);
-  Fq yz = fp_mul<6>(p.y, p.z, FQ);
-  r.z = fp_add<6>(yz, yz, FQ);
+  return result;
+}
+
+// The coordinate field's operations under one name for Fq and Fq2, so
+// that one group law serves G1 and G2.
+static inline Fq f_add(const Fq &a, const Fq &b) { return fp_add<6>(a, b, FQ); }
+static inline Fq f_sub(const Fq &a, const Fq &b) { return fp_sub<6>(a, b, FQ); }
+static inline Fq f_mul(const Fq &a, const Fq &b) { return fp_mul<6>(a, b, FQ); }
+static inline Fq f_sqr(const Fq &a) { return fp_sqr<6>(a, FQ); }
+static inline Fq f_inv(const Fq &a) { return fp_inv<6>(a, FQ); }
+static inline bool f_is_zero(const Fq &a) { return fp_is_zero<6>(a); }
+static inline Fq2v f_add(const Fq2v &a, const Fq2v &b) { return fq2_add(a, b); }
+static inline Fq2v f_sub(const Fq2v &a, const Fq2v &b) { return fq2_sub(a, b); }
+static inline Fq2v f_mul(const Fq2v &a, const Fq2v &b) { return fq2_mul(a, b); }
+static inline Fq2v f_sqr(const Fq2v &a) { return fq2_sqr(a); }
+static inline Fq2v f_inv(const Fq2v &a) { return fq2_inv(a); }
+static inline bool f_is_zero(const Fq2v &a) { return fq2_is_zero(a); }
+
+// ---------------------------------------------------------------------------
+// G1 and G2: Jacobian points over Fq and Fq2 (Montgomery form coordinates)
+// ---------------------------------------------------------------------------
+
+template <class F> struct Jac {
+  F x, y, z;  // z == 0 -> infinity
+};
+typedef Jac<Fq> G1;
+typedef Jac<Fq2v> G2;
+
+template <class F> static inline bool jac_is_inf(const Jac<F> &p) {
+  return f_is_zero(p.z);
+}
+
+template <class F> static inline Jac<F> jac_inf(const Jac<F> &p) {
+  Jac<F> r = p;
+  r.z = F{};
   return r;
 }
 
-static G1 g1_add(const G1 &p, const G1 &q) {
-  if (g1_is_inf(p)) return q;
-  if (g1_is_inf(q)) return p;
-  Fq z1z1 = fp_sqr<6>(p.z, FQ);
-  Fq z2z2 = fp_sqr<6>(q.z, FQ);
-  Fq u1 = fp_mul<6>(p.x, z2z2, FQ);
-  Fq u2 = fp_mul<6>(q.x, z1z1, FQ);
-  Fq s1 = fp_mul<6>(fp_mul<6>(p.y, q.z, FQ), z2z2, FQ);
-  Fq s2 = fp_mul<6>(fp_mul<6>(q.y, p.z, FQ), z1z1, FQ);
-  Fq h = fp_sub<6>(u2, u1, FQ);
-  Fq rr = fp_sub<6>(s2, s1, FQ);
-  if (fp_is_zero<6>(h)) {
-    if (fp_is_zero<6>(rr)) return g1_double(p);
-    G1 inf;
-    inf.x = p.x;
-    inf.y = p.y;
-    inf.z = Fq::zero();
-    return inf;
-  }
-  Fq h2 = fp_add<6>(h, h, FQ);
-  Fq i = fp_sqr<6>(h2, FQ);
-  Fq j = fp_mul<6>(h, i, FQ);
-  Fq r2 = fp_add<6>(rr, rr, FQ);
-  Fq v = fp_mul<6>(u1, i, FQ);
-  G1 r;
-  r.x = fp_sub<6>(fp_sub<6>(fp_sqr<6>(r2, FQ), j, FQ),
-                  fp_add<6>(v, v, FQ), FQ);
-  Fq s1j = fp_mul<6>(s1, j, FQ);
-  r.y = fp_sub<6>(fp_mul<6>(r2, fp_sub<6>(v, r.x, FQ), FQ),
-                  fp_add<6>(s1j, s1j, FQ), FQ);
-  Fq zs = fp_sqr<6>(fp_add<6>(p.z, q.z, FQ), FQ);
-  r.z = fp_mul<6>(fp_sub<6>(fp_sub<6>(zs, z1z1, FQ), z2z2, FQ), h, FQ);
+template <class F> static Jac<F> jac_double(const Jac<F> &p) {
+  if (jac_is_inf(p) || f_is_zero(p.y)) return jac_inf(p);
+  F A = f_sqr(p.x);
+  F B = f_sqr(p.y);
+  F C = f_sqr(B);
+  F t = f_add(p.x, B);
+  F D = f_sub(f_sub(f_sqr(t), A), C);
+  D = f_add(D, D);
+  F E = f_add(f_add(A, A), A);
+  Jac<F> r;
+  r.x = f_sub(f_sqr(E), f_add(D, D));
+  F c8 = f_add(C, C);
+  c8 = f_add(c8, c8);
+  c8 = f_add(c8, c8);
+  r.y = f_sub(f_mul(E, f_sub(D, r.x)), c8);
+  F yz = f_mul(p.y, p.z);
+  r.z = f_add(yz, yz);
   return r;
+}
+
+// P + Q for every P, Q: infinity operands, P == Q (doubling) and P == -Q
+// (infinity) included.
+template <class F> static Jac<F> jac_add(const Jac<F> &p, const Jac<F> &q) {
+  if (jac_is_inf(p)) return q;
+  if (jac_is_inf(q)) return p;
+  F z1z1 = f_sqr(p.z);
+  F z2z2 = f_sqr(q.z);
+  F u1 = f_mul(p.x, z2z2);
+  F u2 = f_mul(q.x, z1z1);
+  F s1 = f_mul(f_mul(p.y, q.z), z2z2);
+  F s2 = f_mul(f_mul(q.y, p.z), z1z1);
+  F h = f_sub(u2, u1);
+  F rr = f_sub(s2, s1);
+  if (f_is_zero(h)) {
+    if (f_is_zero(rr)) return jac_double(p);
+    return jac_inf(p);
+  }
+  F h2 = f_add(h, h);
+  F i = f_sqr(h2);
+  F j = f_mul(h, i);
+  F r2 = f_add(rr, rr);
+  F v = f_mul(u1, i);
+  Jac<F> r;
+  r.x = f_sub(f_sub(f_sqr(r2), j), f_add(v, v));
+  F s1j = f_mul(s1, j);
+  r.y = f_sub(f_mul(r2, f_sub(v, r.x)), f_add(s1j, s1j));
+  F zs = f_sqr(f_add(p.z, q.z));
+  r.z = f_mul(f_sub(f_sub(zs, z1z1), z2z2), h);
+  return r;
+}
+
+// Scalar multiplication, fixed 4-bit windows: a table of 0..15 times a
+// base, then sum_k scalars[k] * base_k over n bases with shared doublings
+// (Straus); scalars are 256-bit standard form.
+static const int WIN = 4;
+static const int WIN_DIGITS = 256 / WIN;
+
+template <class F> static void jac_table(const Jac<F> &p, Jac<F> *m) {
+  m[0] = jac_inf(p);
+  m[1] = p;
+  for (int d = 2; d < (1 << WIN); d++)
+    m[d] = (d & 1) ? jac_add(m[d - 1], p) : jac_double(m[d / 2]);
+}
+
+static inline int scalar_digit(const Fr &s, int w) {
+  const int per_limb = 64 / WIN;
+  return (int)((s.v[w / per_limb] >> (WIN * (w % per_limb))) &
+               ((1u << WIN) - 1));
+}
+
+template <class F>
+static Jac<F> jac_lincomb(const Jac<F> *const *tables, const Fr *scalars,
+                          int n) {
+  Jac<F> acc = tables[0][0];
+  for (int w = WIN_DIGITS - 1; w >= 0; w--) {
+    for (int k = 0; k < WIN; k++) acc = jac_double(acc);
+    for (int t = 0; t < n; t++) {
+      int d = scalar_digit(scalars[t], w);
+      if (d) acc = jac_add(acc, tables[t][d]);
+    }
+  }
+  return acc;
+}
+
+template <class F> static Jac<F> jac_mul(const Jac<F> &p, const Fr &s) {
+  Jac<F> table[1 << WIN];
+  jac_table(p, table);
+  const Jac<F> *tables[1] = {table};
+  return jac_lincomb(tables, &s, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -316,6 +429,55 @@ static void write_fr(const Fr &a, uint8_t *out) { memcpy(out, a.v, 32); }
 static void read_fq(const uint8_t *in, Fq *out) { memcpy(out->v, in, 48); }
 
 static void write_fq(const Fq &a, uint8_t *out) { memcpy(out, a.v, 48); }
+
+// Coordinates: standard form in the bytes, Montgomery form in memory; an
+// Fq2 is c0 then c1.
+static void read_coord(const uint8_t *in, Fq *out) {
+  read_fq(in, out);
+  *out = fp_to_mont<6>(*out, FQ);
+}
+static void read_coord(const uint8_t *in, Fq2v *out) {
+  read_coord(in, &out->c0);
+  read_coord(in + 48, &out->c1);
+}
+static void write_coord(const Fq &a, uint8_t *out) {
+  write_fq(fp_from_mont<6>(a, FQ), out);
+}
+static void write_coord(const Fq2v &a, uint8_t *out) {
+  write_coord(a.c0, out);
+  write_coord(a.c1, out + 48);
+}
+static inline void set_one(Fq *a) { memcpy(a->v, FQ.one, sizeof(a->v)); }
+static inline void set_one(Fq2v *a) { *a = fq2_one(); }
+
+// Affine point encoding: x, y, then an infinity byte: G1 97 B (48 B a
+// coordinate), G2 193 B (96 B a coordinate: x.c0, x.c1, y.c0, y.c1).
+template <class F> static Jac<F> read_affine(const uint8_t *in) {
+  const int W = sizeof(F);
+  Jac<F> p;
+  read_coord(in, &p.x);
+  read_coord(in + W, &p.y);
+  set_one(&p.z);
+  return in[2 * W] ? jac_inf(p) : p;
+}
+
+// One inversion a point.
+template <class F> static void write_affine(const Jac<F> &p, uint8_t *out) {
+  const int W = sizeof(F);
+  if (jac_is_inf(p)) {
+    memset(out, 0, 2 * W);
+    out[2 * W] = 1;
+    return;
+  }
+  F zi = f_inv(p.z);
+  F zi2 = f_sqr(zi);
+  write_coord(f_mul(p.x, zi2), out);
+  write_coord(f_mul(f_mul(p.y, zi2), zi), out + W);
+  out[2 * W] = 0;
+}
+
+static const int G1_BYTES = 2 * sizeof(Fq) + 1;
+static const int G2_BYTES = 2 * sizeof(Fq2v) + 1;
 
 extern "C" {
 
@@ -416,68 +578,71 @@ void fr_ntt(uint8_t *data, int64_t logn, const uint8_t *w_bytes,
   }
 }
 
-// ---- G1 ops ---------------------------------------------------------------
-// affine point encoding: 48B x, 48B y, 1B infinity (standard form coords)
-
-static G1 read_g1_affine(const uint8_t *in) {
-  G1 p;
-  Fq x, y;
-  read_fq(in, &x);
-  read_fq(in + 48, &y);
-  uint8_t inf = in[96];
-  if (inf) {
-    p.x = fp_to_mont<6>(x, FQ);
-    p.y = fp_to_mont<6>(y, FQ);
-    p.z = Fq::zero();
-  } else {
-    p.x = fp_to_mont<6>(x, FQ);
-    p.y = fp_to_mont<6>(y, FQ);
-    Fq one = Fq::zero();
-    one.v[0] = 1;
-    p.z = fp_to_mont<6>(one, FQ);
-  }
-  return p;
-}
-
-static void write_g1_affine(const G1 &p, uint8_t *out) {
-  if (g1_is_inf(p)) {
-    memset(out, 0, 97);
-    out[96] = 1;
-    return;
-  }
-  Fq zi = fp_inv<6>(p.z, FQ);
-  Fq zi2 = fp_sqr<6>(zi, FQ);
-  Fq x = fp_mul<6>(p.x, zi2, FQ);
-  Fq y = fp_mul<6>(fp_mul<6>(p.y, zi2, FQ), zi, FQ);
-  write_fq(fp_from_mont<6>(x, FQ), out);
-  write_fq(fp_from_mont<6>(y, FQ), out + 48);
-  out[96] = 0;
-}
+// ---- G1 and G2 ops --------------------------------------------------------
+// points in the affine encoding above; scalars 32 B standard form.
 
 void g1_scalar_mul(const uint8_t *point, const uint8_t *scalar,
                    uint8_t *out) {
-  G1 p = read_g1_affine(point);
   Fr s;
   read_fr(scalar, &s);
-  G1 acc;
-  acc.x = Fq::zero();
-  acc.y = Fq::zero();
-  acc.z = Fq::zero();
-  bool started = false;
-  for (int i = 3; i >= 0; i--) {
-    for (int b = 63; b >= 0; b--) {
-      if (started) acc = g1_double(acc);
-      if ((s.v[i] >> b) & 1) {
-        if (!started) {
-          acc = p;
-          started = true;
-        } else {
-          acc = g1_add(acc, p);
-        }
-      }
-    }
-  }
-  write_g1_affine(acc, out);
+  write_affine(jac_mul(read_affine<Fq>(point), s), out);
+}
+
+void g2_scalar_mul(const uint8_t *point, const uint8_t *scalar,
+                   uint8_t *out) {
+  Fr s;
+  read_fr(scalar, &s);
+  write_affine(jac_mul(read_affine<Fq2v>(point), s), out);
+}
+
+void g2_add(const uint8_t *p, const uint8_t *q, uint8_t *out) {
+  write_affine(jac_add(read_affine<Fq2v>(p), read_affine<Fq2v>(q)), out);
+}
+
+// Groth16 proof assembly (groth16.ml:123-161) from the CRS's host points,
+// the five MSM sums and the prover's r, s (standard form, below the group
+// order):
+//   a  = alpha + A + delta * r
+//   b  = beta_2 + B + delta_2 * s
+//   b1 = beta + B1 + delta * s
+//   c  = Cmid + H + a * s + b1 * r - delta * (r * s)
+// Since b1 * r - delta * (r * s) = (beta + B1) * r, c is formed as
+// Cmid + H + a * s + (beta + B1) * r, the same point, with the two
+// products on one ladder; delta * s and r * s are never needed.
+// crs_g1: alpha, beta, delta; crs_g2: beta_2, delta_2; sums_g1: A, B1, H,
+// Cmid; sum_g2: B.  out: a (G1), b (G2), c (G1), affine; the points stay
+// Jacobian until then, one inversion an output.
+void groth16_assemble(const uint8_t *crs_g1, const uint8_t *crs_g2,
+                      const uint8_t *sums_g1, const uint8_t *sum_g2,
+                      const uint8_t *r_in, const uint8_t *s_in,
+                      uint8_t *out) {
+  G1 alpha = read_affine<Fq>(crs_g1);
+  G1 beta = read_affine<Fq>(crs_g1 + G1_BYTES);
+  G1 delta = read_affine<Fq>(crs_g1 + 2 * G1_BYTES);
+  G2 beta2 = read_affine<Fq2v>(crs_g2);
+  G2 delta2 = read_affine<Fq2v>(crs_g2 + G2_BYTES);
+  G1 sum_a = read_affine<Fq>(sums_g1);
+  G1 sum_b1 = read_affine<Fq>(sums_g1 + G1_BYTES);
+  G1 sum_h = read_affine<Fq>(sums_g1 + 2 * G1_BYTES);
+  G1 sum_cmid = read_affine<Fq>(sums_g1 + 3 * G1_BYTES);
+  G2 sum_b = read_affine<Fq2v>(sum_g2);
+  Fr r, s;
+  read_fr(r_in, &r);
+  read_fr(s_in, &s);
+
+  G1 a = jac_add(jac_add(alpha, sum_a), jac_mul(delta, r));
+  G2 b = jac_add(jac_add(beta2, sum_b), jac_mul(delta2, s));
+  G1 t_a[1 << WIN], t_b1r[1 << WIN];
+  jac_table(a, t_a);
+  jac_table(jac_add(beta, sum_b1), t_b1r);
+  const G1 *c_tables[2] = {t_a, t_b1r};
+  const Fr c_scalars[2] = {s, r};
+  G1 c = jac_add(jac_add(sum_cmid, sum_h),
+                 jac_lincomb(c_tables, c_scalars, 2));
+
+  write_affine(a, out);
+  write_affine(b, out + G1_BYTES);
+  write_affine(c, out + G1_BYTES + G2_BYTES);
 }
 
 // Pippenger MSM: points n*97B affine, scalars n*32B -> one affine point.
@@ -488,7 +653,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
   std::vector<G1> pts(n);
   std::vector<Fr> scs(n);
   for (int64_t i = 0; i < n; i++) {
-    pts[i] = read_g1_affine(points + 97 * i);
+    pts[i] = read_affine<Fq>(points + G1_BYTES * i);
     read_fr(scalars + 32 * i, &scs[i]);
   }
   G1 total;
@@ -496,7 +661,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
   bool total_set = false;
   for (int w = windows - 1; w >= 0; w--) {
     if (total_set)
-      for (int d = 0; d < c; d++) total = g1_double(total);
+      for (int d = 0; d < c; d++) total = jac_double(total);
     std::vector<G1> buckets(1 << c);
     std::vector<bool> used(1 << c, false);
     for (int64_t i = 0; i < n; i++) {
@@ -509,7 +674,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
       digit &= (1u << c) - 1;
       if (!digit) continue;
       if (used[digit])
-        buckets[digit] = g1_add(buckets[digit], pts[i]);
+        buckets[digit] = jac_add(buckets[digit], pts[i]);
       else {
         buckets[digit] = pts[i];
         used[digit] = true;
@@ -522,7 +687,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
     for (int b = (1 << c) - 1; b >= 1; b--) {
       if (used[b]) {
         if (run_set)
-          run = g1_add(run, buckets[b]);
+          run = jac_add(run, buckets[b]);
         else {
           run = buckets[b];
           run_set = true;
@@ -530,7 +695,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
       }
       if (run_set) {
         if (acc_set)
-          acc = g1_add(acc, run);
+          acc = jac_add(acc, run);
         else {
           acc = run;
           acc_set = true;
@@ -539,7 +704,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
     }
     if (acc_set) {
       if (total_set)
-        total = g1_add(total, acc);
+        total = jac_add(total, acc);
       else {
         total = acc;
         total_set = true;
@@ -547,7 +712,7 @@ void g1_msm(const uint8_t *points, const uint8_t *scalars, int64_t n,
     }
   }
   if (!total_set) total.z = Fq::zero();
-  write_g1_affine(total, out);
+  write_affine(total, out);
 }
 
 int native_abi_version() { return 1; }
@@ -556,7 +721,7 @@ int native_abi_version() { return 1; }
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Fq2 / Fq6 / Fq12 tower and the optimal ate pairing.
+// Fq6 / Fq12 tower and the optimal ate pairing.
 //
 // Tower matches zukelang_tpu_torch.golden.field (the oracle):
 //   Fq2 = Fq[u]/(u^2+1); Fq6 = Fq2[v]/(v^3 - xi), xi = u+1; Fq12 = Fq6[w]/(w^2 - v).
@@ -564,66 +729,9 @@ int native_abi_version() { return 1; }
 // is the native verify-side equivalent (golden/pairing.py semantics).
 // ---------------------------------------------------------------------------
 
-struct Fq2v { Fq c0, c1; };
+// Fq2 is defined above, beside the group law.
 struct Fq6v { Fq2v c0, c1, c2; };
 struct Fq12v { Fq6v c0, c1; };
-
-static inline Fq2v fq2_zero() { return {Fq::zero(), Fq::zero()}; }
-static inline Fq2v fq2_one() {
-  Fq2v r = fq2_zero();
-  memcpy(r.c0.v, FQ.one, sizeof(r.c0.v));
-  return r;
-}
-static inline bool fq2_is_zero(const Fq2v &a) {
-  return fp_is_zero<6>(a.c0) && fp_is_zero<6>(a.c1);
-}
-static inline bool fq2_eq(const Fq2v &a, const Fq2v &b) {
-  return fp_eq<6>(a.c0, b.c0) && fp_eq<6>(a.c1, b.c1);
-}
-static inline Fq2v fq2_add(const Fq2v &a, const Fq2v &b) {
-  return {fp_add<6>(a.c0, b.c0, FQ), fp_add<6>(a.c1, b.c1, FQ)};
-}
-static inline Fq2v fq2_sub(const Fq2v &a, const Fq2v &b) {
-  return {fp_sub<6>(a.c0, b.c0, FQ), fp_sub<6>(a.c1, b.c1, FQ)};
-}
-static inline Fq2v fq2_neg(const Fq2v &a) {
-  return {fp_sub<6>(Fq::zero(), a.c0, FQ), fp_sub<6>(Fq::zero(), a.c1, FQ)};
-}
-static inline Fq2v fq2_mul(const Fq2v &a, const Fq2v &b) {
-  // Karatsuba over u^2 = -1
-  Fq v0 = fp_mul<6>(a.c0, b.c0, FQ);
-  Fq v1 = fp_mul<6>(a.c1, b.c1, FQ);
-  Fq t = fp_mul<6>(fp_add<6>(a.c0, a.c1, FQ), fp_add<6>(b.c0, b.c1, FQ), FQ);
-  return {fp_sub<6>(v0, v1, FQ), fp_sub<6>(fp_sub<6>(t, v0, FQ), v1, FQ)};
-}
-static inline Fq2v fq2_sqr(const Fq2v &a) {
-  Fq t0 = fp_mul<6>(fp_add<6>(a.c0, a.c1, FQ), fp_sub<6>(a.c0, a.c1, FQ), FQ);
-  Fq m = fp_mul<6>(a.c0, a.c1, FQ);
-  return {t0, fp_add<6>(m, m, FQ)};
-}
-static inline Fq2v fq2_conj(const Fq2v &a) {
-  return {a.c0, fp_sub<6>(Fq::zero(), a.c1, FQ)};
-}
-static inline Fq2v fq2_inv(const Fq2v &a) {
-  Fq norm = fp_add<6>(fp_mul<6>(a.c0, a.c0, FQ), fp_mul<6>(a.c1, a.c1, FQ), FQ);
-  Fq ninv = fp_inv<6>(norm, FQ);
-  return {fp_mul<6>(a.c0, ninv, FQ),
-          fp_sub<6>(Fq::zero(), fp_mul<6>(a.c1, ninv, FQ), FQ)};
-}
-static Fq2v fq2_pow(const Fq2v &a, const u64 *e, int elimbs) {
-  Fq2v result = fq2_one();
-  bool started = false;
-  for (int i = elimbs - 1; i >= 0; i--) {
-    for (int b = 63; b >= 0; b--) {
-      if (started) result = fq2_sqr(result);
-      if ((e[i] >> b) & 1) {
-        if (!started) { result = a; started = true; }
-        else result = fq2_mul(result, a);
-      }
-    }
-  }
-  return result;
-}
 
 static Fq2v XI_V;  // u + 1 (Montgomery), initialized lazily
 
@@ -851,14 +959,6 @@ static Fq12v final_exp_native(const Fq12v &fin) {
   return fq12_mul(fq12_mul(t2, fq12_sqr(f)), f);
 }
 
-static void read_fq2(const uint8_t *in, Fq2v *out) {
-  Fq a, b;
-  read_fq(in, &a);
-  read_fq(in + 48, &b);
-  out->c0 = fp_to_mont<6>(a, FQ);
-  out->c1 = fp_to_mont<6>(b, FQ);
-}
-
 extern "C" {
 
 // Multi-pairing: prod_i e(P_i, Q_i) with one shared final exponentiation.
@@ -880,8 +980,8 @@ void gt_multi_pairing(const uint8_t *g1, const uint8_t *g1_inf,
     px = fp_to_mont<6>(px, FQ);
     py = fp_to_mont<6>(py, FQ);
     Fq2v qx, qy;
-    read_fq2(g2 + i * 192, &qx);
-    read_fq2(g2 + i * 192 + 96, &qy);
+    read_coord(g2 + i * 192, &qx);
+    read_coord(g2 + i * 192 + 96, &qy);
     f = fq12_mul(f, miller_loop_native(px, py, qx, qy));
   }
   f = final_exp_native(f);
@@ -904,8 +1004,8 @@ void gt_miller_loop(const uint8_t *g1, const uint8_t *g2, uint8_t *out) {
   px = fp_to_mont<6>(px, FQ);
   py = fp_to_mont<6>(py, FQ);
   Fq2v qx, qy;
-  read_fq2(g2, &qx);
-  read_fq2(g2 + 96, &qy);
+  read_coord(g2, &qx);
+  read_coord(g2 + 96, &qy);
   Fq12v f = miller_loop_native(px, py, qx, qy);
   const Fq2v *cs[6] = {&f.c0.c0, &f.c0.c1, &f.c0.c2,
                        &f.c1.c0, &f.c1.c1, &f.c1.c2};

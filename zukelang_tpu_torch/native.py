@@ -10,7 +10,11 @@ The bindings are those of `zukelang_tpu/native/__init__.py`, with its
 byte formats (little-endian standard-form Fr of 32 bytes, affine G1 of
 97: x, y and an infinity byte): Fr batch products and inverses, the
 radix-2 NTT over Fr, G1 scalar multiplication and MSM, and the pairing.
-They take and return golden values.
+Beyond them: the G2 group law (`g2_add`, `g2_scalar_mul`; affine G2 of
+193 bytes: x.c0, x.c1, y.c0, y.c1 and an infinity byte, the layout the
+pairing reads) and the Groth16 proof assembly (`groth16_assemble`: the
+proof points from the CRS's host points, the five MSM sums and r, s, in
+one call).  They take and return golden values.
 
 There is no fallback: when the compiler is missing (or `CXX` names one
 that is missing), the build fails or the library does not load,
@@ -28,10 +32,10 @@ import platform
 import shutil
 import subprocess
 import time
-from typing import List
+from typing import List, Tuple
 
 from . import params
-from .golden.curve import G1, GT
+from .golden.curve import G1, G2, GT
 from .golden.field import Fq, Fq2, Fq6, Fq12, Fr
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -85,6 +89,9 @@ _SIGNATURES = {
     "fr_inv_batch": [_P, _P, _I64],
     "fr_ntt": [_P, _I64, _P, ctypes.c_int, _P],
     "g1_scalar_mul": [_P, _P, _P],
+    "g2_scalar_mul": [_P, _P, _P],
+    "g2_add": [_P, _P, _P],
+    "groth16_assemble": [_P, _P, _P, _P, _P, _P, _P],
     "g1_msm": [_P, _P, _I64, _P],
     "gt_multi_pairing": [_P, _P, _P, _P, _I64, _P],
 }
@@ -151,6 +158,31 @@ def _bytes_to_g1(b: bytes) -> G1:
     return G1(Fq(x), Fq(y))
 
 
+def _g2s_to_bytes(pts: List[G2]) -> bytes:
+    out = bytearray()
+    for p in pts:
+        if p.is_zero():
+            out += bytes(192) + b"\x01"
+        else:
+            for v in (p.x.c0, p.x.c1, p.y.c0, p.y.c1):
+                out += v.n.to_bytes(48, "little")
+            out += b"\x00"
+    return bytes(out)
+
+
+def _bytes_to_g2(b: bytes) -> G2:
+    if b[192]:
+        return G2.zero()
+    v = [int.from_bytes(b[48 * k:48 * (k + 1)], "little") for k in range(4)]
+    return G2(Fq2.of_ints(v[0], v[1]), Fq2.of_ints(v[2], v[3]))
+
+
+def _scalar_bytes(k) -> bytes:
+    """Fr of either package (a canonical int `.n`) -> 32 bytes, reduced
+    mod r as the golden group law reduces its scalars."""
+    return (k.n % params.R).to_bytes(32, "little")
+
+
 # -- API ---------------------------------------------------------------------
 
 def fr_mul_batch(a: List[Fr], b: List[Fr]) -> List[Fr]:
@@ -203,35 +235,54 @@ def g1_msm(points: List[G1], scalars: List[Fr]) -> G1:
 def g1_scalar_mul(point: G1, scalar: Fr) -> G1:
     lib = library()
     out = ctypes.create_string_buffer(97)
-    lib.g1_scalar_mul(_g1s_to_bytes([point]), scalar.n.to_bytes(32, "little"),
-                      out)
+    lib.g1_scalar_mul(_g1s_to_bytes([point]), _scalar_bytes(scalar), out)
     return _bytes_to_g1(out.raw)
+
+
+def g2_scalar_mul(point: G2, scalar: Fr) -> G2:
+    lib = library()
+    out = ctypes.create_string_buffer(193)
+    lib.g2_scalar_mul(_g2s_to_bytes([point]), _scalar_bytes(scalar), out)
+    return _bytes_to_g2(out.raw)
+
+
+def g2_add(p: G2, q: G2) -> G2:
+    lib = library()
+    out = ctypes.create_string_buffer(193)
+    lib.g2_add(_g2s_to_bytes([p]), _g2s_to_bytes([q]), out)
+    return _bytes_to_g2(out.raw)
+
+
+def groth16_assemble(alpha_g1: G1, beta_g1: G1, delta_g1: G1, beta_g2: G2,
+                     delta_g2: G2, A: G1, B1: G1, H: G1, Cmid: G1, B: G2,
+                     r: Fr, s: Fr) -> Tuple[G1, G2, G1]:
+    """The Groth16 proof points (a, b, c) (groth16.ml:123-161) from the
+    CRS's host points, the MSM sums A, B1, H, C-mid (G1) and B (G2), and
+    the prover's r and s:
+    a = alpha + A + delta r, b = beta_2 + B + delta_2 s,
+    c = Cmid + H + a s + (beta + B1 + delta s) r - delta (r s)."""
+    lib = library()
+    out = ctypes.create_string_buffer(97 + 193 + 97)
+    lib.groth16_assemble(_g1s_to_bytes([alpha_g1, beta_g1, delta_g1]),
+                         _g2s_to_bytes([beta_g2, delta_g2]),
+                         _g1s_to_bytes([A, B1, H, Cmid]), _g2s_to_bytes([B]),
+                         _scalar_bytes(r), _scalar_bytes(s), out)
+    raw = out.raw
+    return (_bytes_to_g1(raw[:97]), _bytes_to_g2(raw[97:290]),
+            _bytes_to_g1(raw[290:]))
 
 
 def gt_multi_pairing(pairs) -> GT:
     """prod_i e(P_i, Q_i) through the C++ tower, with one shared final
     exponentiation."""
     lib = library()
-    n = len(pairs)
-    g1b = bytearray(96 * n)
-    g1i = bytearray(n)
-    g2b = bytearray(192 * n)
-    g2i = bytearray(n)
-    for i, (p, q) in enumerate(pairs):
-        if p.is_zero():
-            g1i[i] = 1
-        else:
-            g1b[i * 96:i * 96 + 48] = p.x.n.to_bytes(48, "little")
-            g1b[i * 96 + 48:i * 96 + 96] = p.y.n.to_bytes(48, "little")
-        if q.is_zero():
-            g2i[i] = 1
-        else:
-            o = i * 192
-            for k, v in enumerate((q.x.c0, q.x.c1, q.y.c0, q.y.c1)):
-                g2b[o + 48 * k:o + 48 * (k + 1)] = v.n.to_bytes(48, "little")
+    g1 = [_g1s_to_bytes([p]) for p, _ in pairs]
+    g2 = [_g2s_to_bytes([q]) for _, q in pairs]
     out = ctypes.create_string_buffer(576)
-    lib.gt_multi_pairing(bytes(g1b), bytes(g1i), bytes(g2b), bytes(g2i), n,
-                         out)
+    lib.gt_multi_pairing(b"".join(x[:96] for x in g1),
+                         bytes(x[96] for x in g1),
+                         b"".join(x[:192] for x in g2),
+                         bytes(x[192] for x in g2), len(pairs), out)
     raw = out.raw
     vals = [int.from_bytes(raw[i * 48:(i + 1) * 48], "little")
             for i in range(12)]

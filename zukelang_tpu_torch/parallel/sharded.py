@@ -32,7 +32,9 @@ assembles.
     from one transform's output split to the next one's input split.
     One all_gather returns (a, b, h) whole.
   * Groth16 / Pinocchio proves: the witness reduction, then every MSM
-    term-sharded, then the JAX package's host assembly.
+    term-sharded, then the host assembly: Groth16's in the host library
+    (`groth16_device.assemble_proof`, as on one card), Pinocchio's on
+    golden points, as the JAX package's.
 
 `Mesh.counts` counts each collective and the bytes each rank hands to it.
 """
@@ -547,8 +549,6 @@ def sharded_groth16_prove(mesh: Mesh, crs, fc, witness_mont: torch.Tensor,
     witness reduction, then the four G1 MSMs and the G2 MSM term-sharded.
     Equal to `groth16_device.prove_device`'s proof under the same rng (r,
     then s); the same proof on every rank."""
-    from ..protocols.groth16 import Proof
-
     r_sc = rng.fr()
     s_sc = rng.fr()
     w = witness_mont.to(mesh.device)
@@ -569,13 +569,8 @@ def sharded_groth16_prove(mesh: Mesh, crs, fc, witness_mont: torch.Tensor,
     H_sum = sharded_msm(mesh, tiztd, h_std, "g1", c=c)
     Cmid = sharded_msm(mesh, ltd_mid, mid_std, "g1", c=c)
     B_sum = sharded_msm(mesh, ti2, b_std, "g2", c=c)
-
-    a = crs.alpha_g1 + A_sum + crs.delta_g1 * r_sc
-    b = crs.beta_g2 + B_sum + crs.delta_g2 * s_sc
-    b1 = crs.beta_g1 + B1_sum + crs.delta_g1 * s_sc
-    cpt = (Cmid + H_sum + a * s_sc + b1 * r_sc
-           - crs.delta_g1 * (r_sc * s_sc))
-    return Proof(a=a, b=b, c=cpt)
+    return gd.assemble_proof(crs, A_sum, B1_sum, H_sum, Cmid, B_sum, r_sc,
+                             s_sc)
 
 
 def sharded_pinocchio_prove(mesh: Mesh, pkey, fc, witness_mont: torch.Tensor,

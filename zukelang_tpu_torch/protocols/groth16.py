@@ -17,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from .. import native
 from ..core import poly
 from ..core.circuit import Circuit
 from ..core.qap import QAP
@@ -142,14 +143,18 @@ class Groth16:
         r = rng.fr()
         s = rng.fr()
 
-        a = pkey.a + eng.g1_apply_powers(a_comb, pkey.ti1) + pkey.d1 * r
-        b = pkey.b2 + eng.g2_apply_powers(b_comb, pkey.ti2) + pkey.d2 * s
-        b1 = pkey.b1 + eng.g1_apply_powers(b_comb, pkey.ti1) + pkey.d1 * s
+        a_sum = eng.g1_apply_powers(a_comb, pkey.ti1)
+        b_sum = eng.g2_apply_powers(b_comb, pkey.ti2)
+        b1_sum = eng.g1_apply_powers(b_comb, pkey.ti1)
         htztd = eng.g1_apply_powers(h, pkey.tiztd)
         mids_sorted = sorted(pkey.ltd_mid.keys())
         c_mid = eng.g1_dot([pkey.ltd_mid[k] for k in mids_sorted],
                            [sol[k] for k in mids_sorted])
-        c = c_mid + htztd + a * s + b1 * r - pkey.d1 * (r * s)
+        # a = alpha + A + delta r, b = beta_2 + B + delta_2 s,
+        # c = Cmid + H + a s + (beta + B1 + delta s) r - delta r s
+        a, b, c = native.groth16_assemble(
+            pkey.a, pkey.b1, pkey.d1, pkey.b2, pkey.d2, a_sum, b1_sum, htztd,
+            c_mid, b_sum, r, s)
         return Proof(a=a, b=b, c=c)
 
     # -- verify (groth16.ml:163-174, 239-240) ------------------------------

@@ -10,8 +10,10 @@ package's and to its golden `Groth16` (`zukelang_tpu/protocols/groth16.py`).
 Keygen: the transpose matvec at Lagrange(tau), then fixed-base batches
 (`ops.msm.fixed_base_mul`: K5 tails-only from 128 elements, K3 mixed adds
 below) and `to_affine`.  Prove: the witness reduction (NTT pipeline), one
-batch of four G1 MSMs and one G2 MSM.  Verify: host pairings (`pairing`,
-the port's native library).
+batch of four G1 MSMs and one G2 MSM, then the proof assembled from their
+sums in the port's host library (`assemble_proof`: one call of
+`native.groth16_assemble`).  Verify: host pairings (`pairing`, the same
+library).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import params, util
+from .. import native, params, util
 from .. import serialize as ser
 from ..core import flat as flat_mod
 from ..engine import torch_engine as te
@@ -244,13 +246,19 @@ def _prove(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
         b_sum = b_resolve()
     with util.stage("zk.prove.unpack", group="g2"):
         (B_sum,) = C.unpack_g2(b_sum)
+    return assemble_proof(crs, A_sum, B1_sum, H_sum, Cmid, B_sum, r_sc, s_sc)
 
+
+def assemble_proof(crs: DeviceCRS, A: G1, B1: G1, H: G1, Cmid: G1, B: G2,
+                   r, s) -> Proof:
+    """The proof from the MSM sums (host points) and the prover's r, s
+    (groth16.ml:123-161): a = alpha + A + delta r, b = beta_2 + B +
+    delta_2 s, c = Cmid + H + a s + (beta + B1 + delta s) r - delta r s,
+    in one call of the host library, under a span `zk.prove.assemble`."""
     with util.stage("zk.prove.assemble", host=True):
-        a = crs.alpha_g1 + A_sum + crs.delta_g1 * r_sc
-        b = crs.beta_g2 + B_sum + crs.delta_g2 * s_sc
-        b1 = crs.beta_g1 + B1_sum + crs.delta_g1 * s_sc
-        c = (Cmid + H_sum + a * s_sc + b1 * r_sc
-             - crs.delta_g1 * (r_sc * s_sc))
+        a, b, c = native.groth16_assemble(
+            crs.alpha_g1, crs.beta_g1, crs.delta_g1, crs.beta_g2,
+            crs.delta_g2, A, B1, H, Cmid, B, r, s)
         return Proof(a=a, b=b, c=c)
 
 
