@@ -1,12 +1,12 @@
 // The port's copy of native/zukelang_native.cpp, the JAX package's host
 // backend: BLS12-381 Fr/Fq arithmetic, G1 curve ops, Pippenger MSM, a
 // radix-2 NTT over Fr and the optimal ate pairing; beyond it, the G2 group
-// law and the Groth16 proof assembly.
+// law, the Groth16 proof assembly and the Pinocchio ZK fold.
 // zukelang_tpu_torch/native.py builds and loads this file and binds the Fr
 // batches, the NTT, G1 and G2 scalar multiplication, the G1 MSM, the G2
-// addition, the Groth16 proof assembly and the pairing; the Groth16
-// provers assemble their proofs here, and the protocols verify through the
-// pairing.
+// addition, the Groth16 proof assembly, the Pinocchio ZK fold and the
+// pairing; the Groth16 provers assemble their proofs here, the Pinocchio
+// ZK provers fold theirs, and the protocols verify through the pairing.
 //
 // Plays the role blst's C library plays for the OCaml reference
 // (dune-project:23, curve.ml:74-221): the fast *host-side*
@@ -416,6 +416,25 @@ template <class F> static Jac<F> jac_mul(const Jac<F> &p, const Fr &s) {
   return jac_lincomb(tables, &s, 1);
 }
 
+// a * b mod r, standard form in and out.
+static Fr fr_mul_std(const Fr &a, const Fr &b) {
+  return fp_from_mont<4>(
+      fp_mul<4>(fp_to_mont<4>(a, FR), fp_to_mont<4>(b, FR), FR), FR);
+}
+
+// acc + sum_k scalars[k] * bases[k], the n products on one ladder.
+template <class F>
+static Jac<F> plus_lincomb(const Jac<F> &acc, const Jac<F> *bases,
+                           const Fr *scalars, int n) {
+  std::vector<Jac<F>> tables((size_t)n << WIN);
+  std::vector<const Jac<F> *> ptrs(n);
+  for (int k = 0; k < n; k++) {
+    ptrs[k] = &tables[(size_t)k << WIN];
+    jac_table(bases[k], &tables[(size_t)k << WIN]);
+  }
+  return jac_add(acc, jac_lincomb(ptrs.data(), scalars, n));
+}
+
 // ---------------------------------------------------------------------------
 // C ABI helpers
 // ---------------------------------------------------------------------------
@@ -643,6 +662,81 @@ void groth16_assemble(const uint8_t *crs_g1, const uint8_t *crs_g2,
   write_affine(a, out);
   write_affine(b, out + G1_BYTES);
   write_affine(c, out + G1_BYTES + G2_BYTES);
+}
+
+// Pinocchio ZK fold (pinocchio.ml:427-514): the ZK proof from the NonZK
+// MSM sums, the proving key's single points, the all-variable tails and
+// the prover's dv, dw, dy (standard form, below the group order):
+//   vv'   = vv + vt dv              ww'   = ww + wt dw (G2)
+//   yy'   = yy + yt dy              vavv' = vavv + vavt dv
+//   waww' = waww + wawt dw (G2)     yayy' = yayy + yayt dy
+//   bvwy' = bvwy + vbt dv + wbt dw + ybt dy
+//   h'    = h + V dw + W dv + t1 (dv dw) - g dy,
+// V = v_all + sum_i c_i v_tail_i and W = w_all + sum_i c_i w_tail_i over
+// the tail columns.  h' is formed as h + v_all dw + w_all dv + t1 (dv dw)
+// + g (-dy) + sum_i (v_tail_i (c_i dw) + w_tail_i (c_i dv)), the same
+// point, with every product on one ladder; bvwy' on one ladder of three.
+// singles_g1: vt, yt, vavt, yayt, vbt, wbt, ybt, t1, g; singles_g2: wt,
+// wawt; sums_g1: vv, yy, h, vavv, yayy, bvwy, v_all, w_all; sums_g2: ww,
+// waww; tails: v_tail[0..n), then w_tail[0..n); tail_vals: c_0..c_(n-1);
+// d: dv, dw, dy.  out: vv, ww, yy, h, vavv, waww, yayy, bvwy (the proof's
+// order), affine; one inversion an output.
+void pinocchio_zk_fold(const uint8_t *singles_g1, const uint8_t *singles_g2,
+                       const uint8_t *sums_g1, const uint8_t *sums_g2,
+                       const uint8_t *tails, const uint8_t *tail_vals,
+                       int64_t n, const uint8_t *d, uint8_t *out) {
+  G1 s1[9], m1[8];
+  for (int k = 0; k < 9; k++)
+    s1[k] = read_affine<Fq>(singles_g1 + k * G1_BYTES);
+  for (int k = 0; k < 8; k++)
+    m1[k] = read_affine<Fq>(sums_g1 + k * G1_BYTES);
+  G2 s2[2], m2[2];
+  for (int k = 0; k < 2; k++) {
+    s2[k] = read_affine<Fq2v>(singles_g2 + k * G2_BYTES);
+    m2[k] = read_affine<Fq2v>(sums_g2 + k * G2_BYTES);
+  }
+  Fr dv, dw, dy;
+  read_fr(d, &dv);
+  read_fr(d + 32, &dw);
+  read_fr(d + 64, &dy);
+  const G1 &vt = s1[0], &yt = s1[1], &vavt = s1[2], &yayt = s1[3],
+           &vbt = s1[4], &wbt = s1[5], &ybt = s1[6], &t1 = s1[7], &g = s1[8];
+  const G1 &vv = m1[0], &yy = m1[1], &h = m1[2], &vavv = m1[3],
+           &yayy = m1[4], &bvwy = m1[5], &v_all = m1[6], &w_all = m1[7];
+
+  // h' on one ladder: 4 fixed terms, then two a tail column
+  std::vector<G1> hb = {v_all, w_all, t1, g};
+  std::vector<Fr> hs = {dw, dv, fr_mul_std(dv, dw),
+                        fp_sub<4>(Fr::zero(), dy, FR)};
+  for (int64_t i = 0; i < n; i++) {
+    Fr c;
+    read_fr(tail_vals + 32 * i, &c);
+    hb.push_back(read_affine<Fq>(tails + G1_BYTES * i));
+    hs.push_back(fr_mul_std(c, dw));
+    hb.push_back(read_affine<Fq>(tails + G1_BYTES * (n + i)));
+    hs.push_back(fr_mul_std(c, dv));
+  }
+  G1 h2 = plus_lincomb(h, hb.data(), hs.data(), (int)hb.size());
+  const G1 bb[3] = {vbt, wbt, ybt};
+  const Fr bs[3] = {dv, dw, dy};
+  G1 bvwy2 = plus_lincomb(bvwy, bb, bs, 3);
+
+  uint8_t *o = out;
+  write_affine(plus_lincomb(vv, &vt, &dv, 1), o);
+  o += G1_BYTES;
+  write_affine(plus_lincomb(m2[0], &s2[0], &dw, 1), o);
+  o += G2_BYTES;
+  write_affine(plus_lincomb(yy, &yt, &dy, 1), o);
+  o += G1_BYTES;
+  write_affine(h2, o);
+  o += G1_BYTES;
+  write_affine(plus_lincomb(vavv, &vavt, &dv, 1), o);
+  o += G1_BYTES;
+  write_affine(plus_lincomb(m2[1], &s2[1], &dw, 1), o);
+  o += G2_BYTES;
+  write_affine(plus_lincomb(yayy, &yayt, &dy, 1), o);
+  o += G1_BYTES;
+  write_affine(bvwy2, o);
 }
 
 // Pippenger MSM: points n*97B affine, scalars n*32B -> one affine point.

@@ -14,7 +14,9 @@ Beyond them: the G2 group law (`g2_add`, `g2_scalar_mul`; affine G2 of
 193 bytes: x.c0, x.c1, y.c0, y.c1 and an infinity byte, the layout the
 pairing reads) and the Groth16 proof assembly (`groth16_assemble`: the
 proof points from the CRS's host points, the five MSM sums and r, s, in
-one call).  They take and return golden values.
+one call) and the Pinocchio ZK fold (`pinocchio_zk_fold`: the ZK proof
+from the NonZK MSM sums, the proving key's single points and tails and
+dv, dw, dy, in one call).  They take and return golden values.
 
 There is no fallback: when the compiler is missing (or `CXX` names one
 that is missing), the build fails or the library does not load,
@@ -92,6 +94,7 @@ _SIGNATURES = {
     "g2_scalar_mul": [_P, _P, _P],
     "g2_add": [_P, _P, _P],
     "groth16_assemble": [_P, _P, _P, _P, _P, _P, _P],
+    "pinocchio_zk_fold": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "g1_msm": [_P, _P, _I64, _P],
     "gt_multi_pairing": [_P, _P, _P, _P, _I64, _P],
 }
@@ -270,6 +273,45 @@ def groth16_assemble(alpha_g1: G1, beta_g1: G1, delta_g1: G1, beta_g2: G2,
     raw = out.raw
     return (_bytes_to_g1(raw[:97]), _bytes_to_g2(raw[97:290]),
             _bytes_to_g1(raw[290:]))
+
+
+def pinocchio_zk_fold(singles_g1: List[G1], singles_g2: List[G2],
+                      sums_g1: List[G1], sums_g2: List[G2],
+                      v_tail: List[G1], w_tail: List[G1], tail: List,
+                      dv: Fr, dw: Fr, dy: Fr) -> Tuple:
+    """The Pinocchio ZK proof points (vv, ww, yy, h, vavv, waww, yayy,
+    bvwy; pinocchio.ml:427-514) from the proving key's single points
+    (singles_g1: vt, yt, vavt, yayt, vbt, wbt, ybt, t1, the generator;
+    singles_g2: wt, wawt), the MSM sums (sums_g1: vv, yy, h, vavv, yayy,
+    bvwy, v_all, w_all; sums_g2: ww, waww), the all-variable tails
+    (v_tail, w_tail: host points; tail: the witness values of those
+    columns, ints) and the prover's dv, dw, dy:
+    vv + vt dv, ww + wt dw, yy + yt dy,
+    h + V dw + W dv + t1 (dv dw) - g dy (V = v_all + sum c_i v_tail_i,
+    W = w_all + sum c_i w_tail_i), vavv + vavt dv, waww + wawt dw,
+    yayy + yayt dy, bvwy + vbt dv + wbt dw + ybt dy."""
+    lib = library()
+    if (len(singles_g1), len(singles_g2), len(sums_g1), len(sums_g2)) != (
+            9, 2, 8, 2):
+        raise ValueError("pinocchio_zk_fold: want 9 + 2 single points and "
+                         "8 + 2 sums")
+    if not len(v_tail) == len(w_tail) == len(tail):
+        raise ValueError(f"pinocchio_zk_fold: {len(v_tail)}, {len(w_tail)} "
+                         f"tail points and {len(tail)} values")
+    out = ctypes.create_string_buffer(6 * 97 + 2 * 193)
+    lib.pinocchio_zk_fold(
+        _g1s_to_bytes(singles_g1), _g2s_to_bytes(singles_g2),
+        _g1s_to_bytes(sums_g1), _g2s_to_bytes(sums_g2),
+        _g1s_to_bytes(list(v_tail) + list(w_tail)),
+        b"".join((c % params.R).to_bytes(32, "little") for c in tail),
+        len(tail), b"".join(_scalar_bytes(k) for k in (dv, dw, dy)), out)
+    raw, pts, at = out.raw, [], 0
+    for group in (G1, G2, G1, G1, G1, G2, G1, G1):
+        size = 97 if group is G1 else 193
+        pts.append((_bytes_to_g1 if group is G1 else _bytes_to_g2)(
+            raw[at:at + size]))
+        at += size
+    return tuple(pts)
 
 
 def gt_multi_pairing(pairs) -> GT:

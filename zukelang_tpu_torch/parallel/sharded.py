@@ -53,8 +53,6 @@ import torch.distributed as dist
 
 from .. import params
 from ..engine import torch_engine as te
-from ..golden.curve import G1
-from ..golden.field import Fr
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as msm_mod
@@ -577,9 +575,11 @@ def sharded_pinocchio_prove(mesh: Mesh, pkey, fc, witness_mont: torch.Tensor,
                             rng, zk: bool = True, c: int = 4):
     """Pinocchio prove on the ranks (pinocchio.ml:193-250 NonZK, :423-515
     ZK): the sharded witness reduction, 6 G1 and 2 G2 MSMs term-sharded,
-    with ZK the 2 all-variable G1 MSMs and the host fold of the tail
-    variables.  Equal to `pinocchio_device.prove_device`'s proof under the
-    same rng (dv, dw, dy); the same proof on every rank."""
+    with ZK the 2 all-variable G1 MSMs, then the fold of the tail variables
+    and the randomisation in the host library (`pinocchio_device.zk_fold`).
+    Equal to `pinocchio_device.prove_device`'s proof under the same rng
+    (dv, dw, dy); the same proof on every rank."""
+    from ..protocols import pinocchio_device as pd
     from ..protocols.pinocchio import Proof
 
     w = witness_mont.to(mesh.device)
@@ -611,9 +611,10 @@ def sharded_pinocchio_prove(mesh: Mesh, pkey, fc, witness_mont: torch.Tensor,
     ww = sharded_msm(mesh, ww_t, mid_std, "g2", c=c)
     waww = sharded_msm(mesh, waw_t, mid_std, "g2", c=c)
 
+    sums = Proof(vv=vv, ww=ww, yy=yy, h=h_pt, vavv=vavv, waww=waww,
+                 yayy=yayy, bvwy=bvwy)
     if not zk:
-        return Proof(vv=vv, ww=ww, yy=yy, h=h_pt,
-                     vavv=vavv, waww=waww, yayy=yayy, bvwy=bvwy)
+        return sums
 
     dv = rng.fr()
     dw = rng.fr()
@@ -622,20 +623,5 @@ def sharded_pinocchio_prove(mesh: Mesh, pkey, fc, witness_mont: torch.Tensor,
     wa_t = gd._fit_points(pkey.w_all, npad)
     v_all = sharded_msm(mesh, va_t, all_std, "g1", c=c)
     w_all = sharded_msm(mesh, wa_t, all_std, "g1", c=c)
-    if pkey.v_all_tail:
-        tail = [Fr(x) for x in F.unpack_mont(w[:, n_main:V], FR)]
-        v_all = v_all + G1.dot(pkey.v_all_tail, tail)
-        w_all = w_all + G1.dot(pkey.w_all_tail, tail)
-
-    h2 = (h_pt + v_all * dw + w_all * dv + pkey.t1 * (dv * dw)
-          - G1.generator() * dy)
-    return Proof(
-        vv=vv + pkey.vt * dv,
-        ww=ww + pkey.wt * dw,
-        yy=yy + pkey.yt * dy,
-        h=h2,
-        vavv=vavv + pkey.vavt * dv,
-        waww=waww + pkey.wawt * dw,
-        yayy=yayy + pkey.yayt * dy,
-        bvwy=bvwy + pkey.vbt * dv + pkey.wbt * dw + pkey.ybt * dy,
-    )
+    tail = F.unpack_mont(w[:, n_main:V], FR) if pkey.v_all_tail else []
+    return pd.zk_fold(pkey, sums, v_all, w_all, tail, dv, dw, dy)

@@ -12,10 +12,12 @@ Keygen: Lagrange values at s, three transpose matvecs (every QAP
 polynomial at s), the per-variable scalar tables (K1 products), 12+
 fixed-base batches (`ops.msm.fixed_base_mul`: K5 from 128 elements, K3
 below, which takes the io batches and the all-variable tails) and
-`to_affine`.  Prove: the witness reduction, one batch of 6 G1 MSMs (8 with
-ZK) and one batch of 2 G2 MSMs, both launched before either is resolved,
-then the host fold of the tail variables and the ZK randomisation.
-Verify: 13 host pairings (`protocols.pinocchio.verify`).
+`to_affine`, under a span `zk.keygen`.  Prove (a span `zk.prove`): the
+witness reduction, one batch of 6 G1 MSMs (8 with ZK) and one batch of 2
+G2 MSMs, both launched before either is resolved, then with ZK the fold
+of the tail variables and the randomisation in the port's host library
+(`zk_fold`: one call of `native.pinocchio_zk_fold`).  Verify: 13 host
+pairings (`protocols.pinocchio.verify`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import params
+from .. import native, params, util
 from ..core import flat as flat_mod
 from ..engine import torch_engine as te
 from ..golden.curve import G1, G2
@@ -96,8 +98,15 @@ def _scalar_tables(v_at, w_at, y_at, rv, rw, ry, av, aw, ay, b):
 def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
                   rng, device=None) -> Tuple[DevicePKey, VKey]:
     """Pinocchio KeyGen (pinocchio.ml:77-189) on `device` (default: the
-    card)."""
+    card).  Runs under a span `zk.keygen` with a new keygen id."""
     device = te.checked_device(device)
+    with util.stage("zk.keygen", request=util.next_request(),
+                    n=fc.domain_size):
+        return _keygen(fc, mids, ios, rng, device)
+
+
+def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
+            device) -> Tuple[DevicePKey, VKey]:
     rv, rw, s, av, aw, ay, b, gm = (rng.fr() for _ in range(8))
     ry = rv * rw
 
@@ -105,12 +114,15 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
     r = params.R
     t = (pow(s.n, n, r) - 1) % r    # target(s), Z = x^n - 1 on the domain
 
-    lag = te._lagrange_at(fc.logn, s.n, device)
+    with util.stage("zk.keygen.lagrange"):
+        lag = te._lagrange_at(fc.logn, s.n, device)
     V = len(fc.vars_sorted)
-    v_at, w_at, y_at = (te.transpose_matvec(side, lag, V)
-                        for side in (fc.l, fc.r, fc.lhs))
-    vv_s, ww_s, yy_s, vav_s, waw_s, yay_s, bvwy_s = _scalar_tables(
-        v_at, w_at, y_at, rv, rw, ry, av, aw, ay, b)
+    with util.stage("zk.keygen.matvec"):
+        v_at, w_at, y_at = (te.transpose_matvec(side, lag, V)
+                            for side in (fc.l, fc.r, fc.lhs))
+    with util.stage("zk.keygen.scalar_tables"):
+        vv_s, ww_s, yy_s, vav_s, waw_s, yay_s, bvwy_s = _scalar_tables(
+            v_at, w_at, y_at, rv, rw, ry, av, aw, ay, b)
 
     mids_idx = np.array([fc.var_index[v] for v in sorted(mids)],
                         dtype=np.int64)
@@ -119,55 +131,72 @@ def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
     mid_cols = torch.from_numpy(mids_idx).to(device)
     io_cols = torch.from_numpy(ios_idx).to(device)
 
-    fb = gd._fixed_base_mont
-
     # the all-variable tables hold the MSM family's width on the device;
     # the variables beyond it become host tails
     n_main = min(V, msm_mod.padded_width(max(n, len(mids_idx))))
-    ti, acc = [], 1
-    for _ in range(n):      # s^0..s^(n-1); s^n enters only through t1
-        ti.append(acc)
-        acc = acc * s.n % r
-    vv_p, yy_p, vav_p, yay_p, bvwy_p, v_all_p, w_all_p, si = gd._affine_many(
-        [fb(tab[:, mid_cols], "g1") for tab in (vv_s, yy_s, vav_s, yay_s,
-                                                bvwy_s)]
-        + [fb(v_at[:, :n_main], "g1"), fb(w_at[:, :n_main], "g1"),
-           gd._fixed_base_std(ti, "g1", device)])
-    ww_p, waw_p, si2 = gd._affine_many(
-        [fb(ww_s[:, mid_cols], "g2"), fb(waw_s[:, mid_cols], "g2"),
-         gd._fixed_base_std(ti, "g2", device)])
+    with util.stage("zk.keygen.tau_powers", host=True, n=n):
+        ti, acc = [], 1
+        for _ in range(n):      # s^0..s^(n-1); s^n enters only through t1
+            ti.append(acc)
+            acc = acc * s.n % r
+
+    def table(batch: str, group: str, scalars_mont) -> C.Point:
+        with util.stage("zk.keygen.fixed_base", group=group, batch=batch):
+            return gd._fixed_base_mont(scalars_mont, group)
+
+    def powers(batch: str, group: str) -> C.Point:
+        with util.stage("zk.keygen.fixed_base", group=group, batch=batch):
+            return gd._fixed_base_std(ti, group, device)
+
+    g1_parts = [table(name, "g1", tab[:, mid_cols]) for name, tab in (
+        ("vv", vv_s), ("yy", yy_s), ("vav", vav_s), ("yay", yay_s),
+        ("bvwy", bvwy_s))]
+    g1_parts += [table("v_all", "g1", v_at[:, :n_main]),
+                 table("w_all", "g1", w_at[:, :n_main]), powers("si", "g1")]
+    with util.stage("zk.keygen.to_affine", group="g1"):
+        vv_p, yy_p, vav_p, yay_p, bvwy_p, v_all_p, w_all_p, si = (
+            gd._affine_many(g1_parts))
+    del g1_parts        # the Jacobian tables go before the G2 tables come
+    g2_parts = [table("ww", "g2", ww_s[:, mid_cols]),
+                table("waw", "g2", waw_s[:, mid_cols]), powers("si2", "g2")]
+    with util.stage("zk.keygen.to_affine", group="g2"):
+        ww_p, waw_p, si2 = gd._affine_many(g2_parts)
+    del g2_parts
     if n_main < V:
-        v_all_tail = C.unpack_g1(fb(v_at[:, n_main:], "g1"))[:V - n_main]
-        w_all_tail = C.unpack_g1(fb(w_at[:, n_main:], "g1"))[:V - n_main]
+        v_all_tail = C.unpack_g1(table("v_all_tail", "g1",
+                                       v_at[:, n_main:]))[:V - n_main]
+        w_all_tail = C.unpack_g1(table("w_all_tail", "g1",
+                                       w_at[:, n_main:]))[:V - n_main]
     else:
         v_all_tail, w_all_tail = [], []
 
     # io points are few: the same device path, unpacked to host points
     nio = len(ios_idx)
-    vv_io = C.unpack_g1(fb(vv_s[:, io_cols], "g1"))[:nio]
-    ww_io = C.unpack_g2(fb(ww_s[:, io_cols], "g2"))[:nio]
-    yy_io = C.unpack_g1(fb(yy_s[:, io_cols], "g1"))[:nio]
+    vv_io = C.unpack_g1(table("vv_io", "g1", vv_s[:, io_cols]))[:nio]
+    ww_io = C.unpack_g2(table("ww_io", "g2", ww_s[:, io_cols]))[:nio]
+    yy_io = C.unpack_g1(table("yy_io", "g1", yy_s[:, io_cols]))[:nio]
 
-    g1, g2 = G1.generator(), G2.generator()
-    ft = Fr(t)
-    pkey = DevicePKey(
-        vv=vv_p, ww=ww_p, yy=yy_p, vav=vav_p, waw=waw_p, yay=yay_p,
-        bvwy=bvwy_p, si=si, si2=si2, v_all=v_all_p, w_all=w_all_p,
-        v_all_tail=v_all_tail, w_all_tail=w_all_tail,
-        vt=g1 * (rv * ft), wt=g2 * (rw * ft), yt=g1 * (ry * ft),
-        vavt=g1 * (rv * av * ft), wawt=g2 * (rw * aw * ft),
-        yayt=g1 * (ry * ay * ft),
-        vbt=g1 * (rv * b * ft), wbt=g1 * (rw * b * ft),
-        ybt=g1 * (ry * b * ft), t1=g1 * ft,
-        mids_idx=mids_idx, n=n)
-    ios_sorted = sorted(ios)
-    vkey = VKey(
-        one=g1, one2=g2, av=g2 * av, aw=g1 * aw, ay=g2 * ay,
-        gm2=g2 * gm, bgm=g1 * (gm * b), bgm2=g2 * (gm * b),
-        yt=g2 * (ry * ft),
-        vv_io=dict(zip(ios_sorted, vv_io)),
-        ww_io=dict(zip(ios_sorted, ww_io)),
-        yy_io=dict(zip(ios_sorted, yy_io)))
+    with util.stage("zk.keygen.host_points", host=True):
+        g1, g2 = G1.generator(), G2.generator()
+        ft = Fr(t)
+        pkey = DevicePKey(
+            vv=vv_p, ww=ww_p, yy=yy_p, vav=vav_p, waw=waw_p, yay=yay_p,
+            bvwy=bvwy_p, si=si, si2=si2, v_all=v_all_p, w_all=w_all_p,
+            v_all_tail=v_all_tail, w_all_tail=w_all_tail,
+            vt=g1 * (rv * ft), wt=g2 * (rw * ft), yt=g1 * (ry * ft),
+            vavt=g1 * (rv * av * ft), wawt=g2 * (rw * aw * ft),
+            yayt=g1 * (ry * ay * ft),
+            vbt=g1 * (rv * b * ft), wbt=g1 * (rw * b * ft),
+            ybt=g1 * (ry * b * ft), t1=g1 * ft,
+            mids_idx=mids_idx, n=n)
+        ios_sorted = sorted(ios)
+        vkey = VKey(
+            one=g1, one2=g2, av=g2 * av, aw=g1 * aw, ay=g2 * ay,
+            gm2=g2 * gm, bgm=g1 * (gm * b), bgm2=g2 * (gm * b),
+            yt=g2 * (ry * ft),
+            vv_io=dict(zip(ios_sorted, vv_io)),
+            ww_io=dict(zip(ios_sorted, ww_io)),
+            yy_io=dict(zip(ios_sorted, yy_io)))
     return pkey, vkey
 
 
@@ -175,17 +204,30 @@ def prove_device(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
                  witness_mont: torch.Tensor, rng, zk: bool = True) -> Proof:
     """Pinocchio prove (pinocchio.ml:193-250 NonZK, :423-515 ZK).
     witness_mont: (8, V+1) Montgomery witness (flat.pack_witness layout),
-    moved to the proving key's device."""
-    dev = pkey.si[0].device
-    witness_mont = witness_mont.to(dev)
-    _a, _b, h = te.run_witness_reduction(fc, witness_mont)
+    moved to the proving key's device.  Runs under a span `zk.prove` with
+    a new proof id."""
+    with util.stage("zk.prove", request=util.next_request()):
+        return _prove(pkey, fc, witness_mont, rng, zk)
 
-    n = pkey.n
+
+def _prove(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
+           witness_mont: torch.Tensor, rng, zk: bool) -> Proof:
+    dev = pkey.si[0].device
     V = len(fc.vars_sorted)
     n_main = V - len(pkey.v_all_tail)
-    c_mid = witness_mont[:, torch.from_numpy(pkey.mids_idx).to(dev)]
-    c_all = witness_mont[:, :n_main]
-    npad = msm_mod.padded_width(max(pkey.si[0].shape[-1], c_mid.shape[-1],
+    # the tail columns' values, read where the witness is handed in (on the
+    # host, no read-back from the card)
+    tail = (F.unpack_mont(witness_mont[:, n_main:V], FR)
+            if zk and pkey.v_all_tail else [])
+    nbytes = (witness_mont.numel() * witness_mont.element_size()
+              if witness_mont.device != dev else 0)
+    with util.stage("zk.prove.witness_to_device", bytes=nbytes):
+        witness_mont = witness_mont.to(dev)
+    n = pkey.n
+    with util.stage("zk.prove.reduction", n=n):
+        _a, _b, h = te.run_witness_reduction(fc, witness_mont)
+
+    npad = msm_mod.padded_width(max(pkey.si[0].shape[-1], len(pkey.mids_idx),
                                     n_main if zk else 1))
 
     def pts(p):
@@ -195,45 +237,64 @@ def prove_device(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
         return gd._pad_scalars(x, npad)
 
     g1_tables = [pkey.vv, pkey.yy, pkey.si, pkey.vav, pkey.yay, pkey.bvwy]
-    g1_scalars = [c_mid, c_mid, h[:, :max(1, n - 1)], c_mid, c_mid, c_mid]
     if zk:
         g1_tables += [pkey.v_all, pkey.w_all]
-        g1_scalars += [c_all, c_all]
     # launch both batches before either is resolved: resolving reads the
     # collision flag, a host sync
-    g1_resolve = msm_mod.msm_many_staged_deferred(
-        tuple(pts(p) for p in g1_tables), [sc(x) for x in g1_scalars],
-        pmap=tuple(range(len(g1_tables))), group="g1",
-        c=gd.DEFAULT_MSM_WINDOW)
-    g2_resolve = msm_mod.msm_many_staged_deferred(
-        (pts(pkey.ww), pts(pkey.waw)), [sc(c_mid), sc(c_mid)], pmap=(0, 1),
-        group="g2", c=gd.DEFAULT_MSM_WINDOW)
-    g1_pts = C.unpack_g1(g1_resolve())
-    ww, waww = C.unpack_g2(g2_resolve())
+    with util.stage("zk.prove.msm_launch", group="g1",
+                    msms=len(g1_tables), n=npad):
+        c_mid = sc(witness_mont[:, torch.from_numpy(pkey.mids_idx).to(dev)])
+        g1_scalars = [c_mid, c_mid, sc(h[:, :max(1, n - 1)]), c_mid, c_mid,
+                      c_mid]
+        if zk:
+            c_all = sc(witness_mont[:, :n_main])
+            g1_scalars += [c_all, c_all]
+        g1_resolve = msm_mod.msm_many_staged_deferred(
+            tuple(pts(p) for p in g1_tables), g1_scalars,
+            pmap=tuple(range(len(g1_tables))), group="g1",
+            c=gd.DEFAULT_MSM_WINDOW)
+    with util.stage("zk.prove.msm_launch", group="g2", msms=2, n=npad):
+        g2_resolve = msm_mod.msm_many_staged_deferred(
+            (pts(pkey.ww), pts(pkey.waw)), [c_mid, c_mid], pmap=(0, 1),
+            group="g2", c=gd.DEFAULT_MSM_WINDOW)
+    with util.stage("zk.prove.msm_wait", group="g1"):
+        g1_sums = g1_resolve()
+    with util.stage("zk.prove.unpack", group="g1"):
+        g1_pts = C.unpack_g1(g1_sums)
+    with util.stage("zk.prove.msm_wait", group="g2"):
+        g2_sums = g2_resolve()
+    with util.stage("zk.prove.unpack", group="g2"):
+        ww, waww = C.unpack_g2(g2_sums)
     vv, yy, h_pt, vavv, yayy, bvwy = g1_pts[:6]
-
+    sums = Proof(vv=vv, ww=ww, yy=yy, h=h_pt, vavv=vavv, waww=waww,
+                 yayy=yayy, bvwy=bvwy)
     if not zk:
-        return Proof(vv=vv, ww=ww, yy=yy, h=h_pt,
-                     vavv=vavv, waww=waww, yayy=yayy, bvwy=bvwy)
-
-    # ZK randomisation (pinocchio.ml:427-514)
+        return sums
     dv, dw, dy = rng.fr(), rng.fr(), rng.fr()
-    v_all, w_all = g1_pts[6:]
-    if pkey.v_all_tail:
-        tail = [Fr(x) for x in F.unpack_mont(witness_mont[:, n_main:V], FR)]
-        v_all = v_all + G1.dot(pkey.v_all_tail, tail)
-        w_all = w_all + G1.dot(pkey.w_all_tail, tail)
-    h2 = (h_pt + v_all * dw + w_all * dv + pkey.t1 * (dv * dw)
-          - G1.generator() * dy)
-    return Proof(
-        vv=vv + pkey.vt * dv,
-        ww=ww + pkey.wt * dw,
-        yy=yy + pkey.yt * dy,
-        h=h2,
-        vavv=vavv + pkey.vavt * dv,
-        waww=waww + pkey.wawt * dw,
-        yayy=yayy + pkey.yayt * dy,
-        bvwy=bvwy + pkey.vbt * dv + pkey.wbt * dw + pkey.ybt * dy)
+    return zk_fold(pkey, sums, g1_pts[6], g1_pts[7], tail, dv, dw, dy)
+
+
+def zk_fold(pkey: DevicePKey, sums: Proof, v_all: G1, w_all: G1,
+            tail: Sequence, dv, dw, dy) -> Proof:
+    """The ZK proof (pinocchio.ml:427-514) from the NonZK proof's MSM sums
+    (`sums`), the all-variable MSMs over the columns the key holds on the
+    device (v_all, w_all), the witness values of the tail columns beyond
+    them (`tail`, in order) and the prover's dv, dw, dy:
+    vv + vt dv, ww + wt dw, yy + yt dy, vavv + vavt dv, waww + wawt dw,
+    yayy + yayt dy, bvwy + vbt dv + wbt dw + ybt dy and
+    h + V dw + W dv + t1 (dv dw) - g dy, with V and W the all-variable sums
+    with the tails folded in.  One call of the host library
+    (`native.pinocchio_zk_fold`), under a span `zk.prove.fold` (host)
+    with the number of tail columns."""
+    with util.stage("zk.prove.fold", host=True, tail=len(tail)):
+        return Proof(*native.pinocchio_zk_fold(
+            [pkey.vt, pkey.yt, pkey.vavt, pkey.yayt, pkey.vbt, pkey.wbt,
+             pkey.ybt, pkey.t1, G1.generator()],
+            [pkey.wt, pkey.wawt],
+            [sums.vv, sums.yy, sums.h, sums.vavv, sums.yayy, sums.bvwy,
+             v_all, w_all],
+            [sums.ww, sums.waww], pkey.v_all_tail, pkey.w_all_tail, tail,
+            dv, dw, dy))
 
 
 def pkey_from_jax(jpk, device=None) -> DevicePKey:
