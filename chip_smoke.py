@@ -21,7 +21,9 @@ Phases (any failure raises and the script exits non-zero):
      the NTT kernel's four forms at 2^1, 2^2, 2^10, 2^11, 2^12 and 2^16
      (a batch of 3) and 2^20 (one vector); K8 at 2^16 (G1, G2) at g = 1
      and at the wrapper's g, with a forced collision in every 11th chunk
-     flagged at both;
+     flagged at both; K9 at the provers' batches (4 and 8 MSMs at 2^16,
+     c = 13; 4 at 2^20, c = 16; Montgomery scalars) and at one MSM of
+     standard-form scalars, edge scalars in every MSM;
   3. the frozen x^3 + x + 3 vectors (zukelang_tpu_torch/testdata): keygen,
      prove and verify of Groth16, Pinocchio NonZK and Pinocchio ZK under
      the injected scalars; the proof bytes must equal the golden ones;
@@ -29,10 +31,11 @@ Phases (any failure raises and the script exits non-zero):
      (`bench_lib.run_groth16(16, seed=1)`: keygen, one cold and three
      warm proves, verify), every kernel launch counted, K3's chain held
      against its plain version on the keygen's small batch; then one
-     more prove whose witness reduction, K1, K4, K5, K6, K7 and K2
+     more prove whose witness reduction, K1, K9, K4, K5, K6, K7 and K2
      inputs are kept, and each of those calls against its plain version:
      the fused witness reduction (the NTT kernel, a, b and h), K1's
-     conversions, K4 on the
+     conversions, K9 on each batch's scalars (and no call of the digit
+     chain it replaced), K4 on the
      G1 (80, 2^16) and G2 (20, 2^16) digit blocks beside the stable
      `torch.sort`, K5 on both groups' whole blocks, K6 on the three levels
      of the weighted reduction in each group, K7 on every carry scan, the
@@ -142,7 +145,8 @@ prove.
 Each path of phases 4 to 11 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
-add at most MAX_ADD_LAUNCHES times a prove.  Then one JSON
+add at most MAX_ADD_LAUNCHES times a prove; in phases 4, 5 and 8 K9
+twice a prove (once a batch) and K1 never.  Then one JSON
 line with the kernel summaries (each kernel's last check on a whole
 input), the card line, and the last line {"ok": true, "device": {...}}.
 
@@ -203,12 +207,16 @@ REPLACES = {
     # butterflies (zukelang_tpu/ops/ntt.py:85) that calls K1 a stage
     "ntt": ("zukelang_tpu_torch/csrc/ntt.cu",
             "zukelang_tpu/ops/pallas_kernels.py:201"),
+    # K9 replaces no Pallas kernel: the JAX package's digit chain is XLA
+    # code, which XLA fuses
+    "signed_digits": ("zukelang_tpu_torch/csrc/signed_digits.cu",
+                      "zukelang_tpu/ops/msm.py:45-86 (XLA)"),
 }
 
 # the kernels each path must launch
 PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
                  "digit_sort", "bucket_scan_rows", "jac_scan",
-                 "weighted_chunk_sums", "ntt")
+                 "weighted_chunk_sums", "ntt", "signed_digits")
 NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
 MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # K2 add launches a prove: a Hillis-Steele tail, a combine, the carry
@@ -219,6 +227,9 @@ MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # the H100), which phase 9 (b) captures.
 MAX_ADD_LAUNCHES = {"groth16_2^16": 15, "pinocchio": 15, "groth16_2^20": 19,
                     "engine_groth16_2^16": 8}
+# K9 at the cells' batches: (MSMs, log n, c) of the G1 batches at 2^16
+# (Groth16, Pinocchio ZK) and at 2^20
+DIGIT_SHAPES = ((4, 16, 13), (8, 16, 13), (4, 20, 16))
 # Above this many chunks a K5, K6 or K7 call of the 2^20 path is held
 # against its plain version on a sample of its block rows
 SAMPLE_ABOVE_CHUNKS = 8192
@@ -538,6 +549,26 @@ def _double_work(group, P, counts):
                                 else None), _fq_ops(group, 7 * total))
 
 
+def _digits_work(S, c: int, mont: bool):
+    """K9: the scalars read once, the digits written once; a product by 1
+    a scalar where they are Montgomery."""
+    ops = S.shape[0] * S.shape[2] * PRODUCTS["Fr"] if mont else 0
+    return lambda got: (_nbytes(S, got), ops)
+
+
+def _digit_edges(c: int):
+    """Scalars whose signed digits carry: 0, 1, r - 1, a window of exactly
+    2^(c-1) and of 2^(c-1) + 1 in every window, all-ones windows (the
+    carry runs through every window), bits in a partial top window."""
+    from zukelang_tpu_torch.params import FR
+    half, W = 1 << (c - 1), -(-256 // c)
+    every = [sum(d << (c * w) for w in range(W - 1)) % FR.p
+             for d in (half, half + 1)]
+    ones = (1 << (c * ((FR.p.bit_length() - 1) // c))) - 1
+    return [0, 1, FR.p - 1, *every, ones, 1 << 247,
+            (1 << 254) | (0x1FFF << 234)]
+
+
 def _k5_work(group, rows, idx, seg, K):
     """work(got) of a K5 call: 11 coordinate products per continuing
     step with both operands finite; bytes: the row table, indices and
@@ -830,6 +861,24 @@ def kernel_checks(dev, rng: random.Random):
         steps[dup + 1] = 0
         seg8 = torch.cumsum(steps, 0).to(torch.int32)
         k8_at_widths("at 2^16", (X8, Y8), seg8, K8, group, 1, want_flag)
+
+    # K9 at the cells' batches: random scalars below 2^254 (< r), the
+    # edge scalars in the first columns of every MSM; Montgomery as the
+    # provers' batches, and standard form at B = 1 (the engine's MSMs)
+    for B, logn, c in DIGIT_SHAPES + ((1, 16, 13),):
+        n9 = 1 << logn
+        S = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, FR.nl, n9),
+                          dtype=torch.int32, device=dev)
+        S[:, FR.nl - 1] &= 0x3FFFFFFF
+        edges = _digit_edges(c)
+        mont = B > 1
+        S[:, :, :len(edges)] = (F.pack_mont if mont else F.pack)(
+            edges, FR, dev)
+        log(f"K9 signed_digits (B = {B}, n = 2^{logn}, c = {c}, "
+            f"{'Montgomery' if mont else 'standard'} scalars)")
+        record("signed_digits", lambda: K.signed_digits(S, c, mont),
+               lambda: K.signed_digits_plain(S, c, mont),
+               _digits_work(S, c, mont))
     return RESULTS
 
 
@@ -866,7 +915,8 @@ def _check_launches(path: str, counts: dict, required,
                     per_prove: dict = None) -> None:
     """Every kernel of the path launched; K3 once a small fixed-base
     batch of keygen (its chain); K2's add at most MAX_ADD_LAUNCHES[path]
-    times a prove."""
+    times a prove; K9 once each of a prove's two MSM batches, and K1 not
+    at all (K9 takes the scalars out of Montgomery form)."""
     log(f"launch counts over the {path} run: {counts}")
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -882,6 +932,11 @@ def _check_launches(path: str, counts: dict, required,
         raise AssertionError(f"{path}: {per_prove['point_add']} K2 add "
                              "launches a prove, more than "
                              f"{MAX_ADD_LAUNCHES[path]}")
+    if per_prove is not None and (per_prove["signed_digits"] != 2
+                                  or per_prove["mont_mul"] != 0):
+        raise AssertionError(f"{path}: {per_prove['signed_digits']} K9 and "
+                             f"{per_prove['mont_mul']} K1 launches a prove, "
+                             "expected 2 and 0")
 
 
 def _prove_targets():
@@ -889,11 +944,13 @@ def _prove_targets():
     prove calls and the witness reduction."""
     from zukelang_tpu_torch.engine import torch_engine as te
     from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.ops import msm
     return ([(K, k) for k in ("digit_sort", "weighted_chunk_sums",
                               "bucket_scan_rows", "point_double_n",
                               "jac_scan", "point_add", "point_add_carry",
-                              "seg_scan_small", "mont_mul")]
-            + [(te, "run_witness_reduction")])
+                              "seg_scan_small", "mont_mul", "signed_digits")]
+            + [(te, "run_witness_reduction"),
+               (msm, "_scalars_to_signed_windows")])
 
 
 def _capture_prove(crs, fc, wm):
@@ -1023,21 +1080,26 @@ def _wreduce_levels(nb: int) -> int:
 
 def _check_captured_calls(seen, path: str, n_batches: int, groups) -> None:
     """The calls `_capture_inputs` kept of n_batches MSM batches (one a
-    group) and one witness reduction: a K4 and a K5 call a batch, a K6
-    call and a doubling call a level of the weighted reduction (the last
-    doubling is the combine's), K7 on each of `groups`, some carry adds
-    and small scans, and at most MAX_ADD_LAUNCHES[path] K2 adds."""
+    group) and one witness reduction: a K9, a K4 and a K5 call a batch
+    (and no call of the digit chain K9 replaced), a K6 call and a
+    doubling call a level of the weighted reduction (the last doubling is
+    the combine's), K7 on each of `groups`, some carry adds and small
+    scans, and at most MAX_ADD_LAUNCHES[path] K2 adds."""
     from zukelang_tpu_torch.ops import kernels as K
     sorts, wsums = seen["digit_sort"], seen["weighted_chunk_sums"]
     scans, dbls = seen["bucket_scan_rows"], seen["point_double_n"]
     jscans, wreds = seen["jac_scan"], seen["run_witness_reduction"]
+    digits, chain = seen["signed_digits"], seen["_scalars_to_signed_windows"]
     levels = _wreduce_levels(sorts[0][0][1]) if sorts else 0
-    want = (n_batches, n_batches, n_batches * levels, n_batches * levels, 1)
-    if (len(sorts), len(scans), len(wsums), len(dbls), len(wreds)) != want:
+    want = (n_batches, 0, n_batches, n_batches, n_batches * levels,
+            n_batches * levels, 1)
+    got = (len(digits), len(chain), len(sorts), len(scans), len(wsums),
+           len(dbls), len(wreds))
+    if got != want:
         raise AssertionError(
-            f"{path}: {len(sorts)} K4, {len(scans)} K5, {len(wsums)} "
-            f"K6, {len(dbls)} doubling calls and {len(wreds)} witness "
-            f"reductions, expected {want}")
+            f"{path}: {got[0]} K9, {got[1]} digit chain, {got[2]} K4, "
+            f"{got[3]} K5, {got[4]} K6, {got[5]} doubling calls and {got[6]} "
+            f"witness reductions, expected {want}")
     if {K.group_of(a[0][0]) for a, _kw in jscans} != set(groups):
         raise AssertionError(f"{path}: K7 did not scan {sorted(groups)}")
     adds, carries = seen["point_add"], seen["point_add_carry"]
@@ -1085,6 +1147,12 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
     record("ntt", lambda: te.run_witness_reduction(fc, wm),
            lambda: te.witness_reduction_plain(fc.logn)(*args),
            _witness_reduction_work(fc, args), plain_reps=0)
+    for (S, c), kw in seen["signed_digits"]:
+        log(f"K9 signed_digits at the prove's inputs ({tuple(S.shape)}, "
+            f"c = {c}, mont = {kw['mont']})")
+        record("signed_digits", lambda: K.signed_digits(S, c, **kw),
+               lambda: K.signed_digits_plain(S, c, **kw),
+               _digits_work(S, c, kw["mont"]), plain_reps=0)
     for (a, b, spec), _kw in seen["mont_mul"]:
         log(f"K1 mont_mul at the prove's inputs ({spec.name}, "
             f"{tuple(a.shape)})")

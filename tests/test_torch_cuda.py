@@ -297,6 +297,18 @@ def test_mont_mul_looped_equals_k1_and_plain(dev, spec):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("mont", [False, True])
+@pytest.mark.parametrize("c", [4, 5, 13, 16])
+def test_signed_digits_kernel_equals_plain(dev, c, mont):
+    """K9 on 3 MSMs of 1000 scalars (0, 1 and r - 1 among them; not a
+    multiple of the block's 128), standard or Montgomery form."""
+    S = torch.stack([_field(FR, 1000, 61 + j, dev) for j in range(3)])
+    before = K.LAUNCHES["signed_digits"]
+    got = K.signed_digits(S, c, mont)
+    assert K.LAUNCHES["signed_digits"] == before + 1
+    assert torch.equal(got, K.signed_digits_plain(S, c, mont))
+
+
 def test_new_wrappers_refuse_bad_shapes(dev):
     X = _coord("g1", 64, 1, dev)
     seg = torch.zeros(64, dtype=torch.int32, device=dev)

@@ -252,13 +252,69 @@ def test_radix_passes_sort_like_a_stable_sort(nkeys):
     assert np.array_equal(order, np.argsort(keys, kind="stable"))
 
 
-@pytest.mark.parametrize("c", [4, 5])
+@pytest.mark.parametrize("c", [4, 5, 13, 16])
 def test_signed_windows_match_jax(c):
     scs = [0, 1, params.R - 1] + [rng.randrange(params.R) for _ in range(5)]
     want = np.asarray(jmsm._scalars_to_signed_windows(FJ.pack(scs, FJ.FR), c))
     got = msm._scalars_to_signed_windows(F.pack(scs, FR), c)
     assert np.array_equal(got.numpy(), want)
     assert msm.auto_window(1 << 16) == jmsm.auto_window(1 << 16) == 13
+
+
+def _digit_edge_scalars(c):
+    """0, 1, r - 1; windows of exactly 2^(c-1) and 2^(c-1) + 1, alone and
+    in every window; all-ones windows, whose carry runs through every
+    window; bits in the partial top window of c = 13 (bits 247-255), also
+    by a carry out of the window below it."""
+    half, W = 1 << (c - 1), -(-256 // c)
+    ones = (1 << (c * ((params.R.bit_length() - 1) // c))) - 1
+    every = [sum(d << (c * w) for w in range(W - 1)) % params.R
+             for d in (half, half + 1)]
+    return [0, 1, params.R - 1, half, half + 1, half << c, (half + 1) << c,
+            ones, ones - 1, *every, 1 << 247, (1 << 254) | (0x1FFF << 234),
+            (1 << 254) | (1 << 246), params.R - 1 - (1 << 100)]
+
+
+@pytest.mark.parametrize("mont", [0, 1])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("c", [4, 5, 13, 16])
+def test_signed_digits_cpu_route_matches_jax(c, B, mont):
+    """K9's CPU route (its plain version) against the JAX package's
+    `_scalars_to_signed_windows` (after `from_mont` where the scalars are
+    Montgomery), in the (B W, n) block layout: row j W + w is window w of
+    MSM j.  Each MSM takes the edge scalars in its own order, with random
+    ones."""
+    r = random.Random(1000 * c + 10 * B + mont)
+    edge = _digit_edge_scalars(c)
+    msms = []
+    for _ in range(B):
+        vals = edge + [r.randrange(params.R) for _ in range(24)]
+        r.shuffle(vals)
+        msms.append(vals)
+    pack = F.pack_mont if mont else F.pack
+    S = torch.stack([pack(v, FR) for v in msms])
+    got = K.signed_digits(S, c, mont=bool(mont))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    want = []
+    for j in range(B):
+        js = jnp.asarray(F.to_jax(S[j]))
+        if mont:
+            js = FJ.from_mont(js, FJ.FR)
+        want.append(np.asarray(jmsm._scalars_to_signed_windows(js, c)))
+    assert np.array_equal(got.numpy(), np.concatenate(want))
+    half = 1 << (c - 1)
+    assert int(got.max()) <= half and int(got.min()) >= 1 - half
+
+
+@pytest.mark.parametrize("case", ["c3", "c17", "int64", "strided", "2d"])
+def test_signed_digits_rejects_what_the_kernel_does_not_take(case):
+    S = F.pack(list(range(64)), FR)[None]
+    args = {"c3": (S, 3), "c17": (S, 17), "int64": (S.to(torch.int64), 13),
+            "strided": (torch.cat([S, S], dim=2)[..., ::2], 13),
+            "2d": (S[0], 13)}[case]
+    assert case != "strided" or not args[0].is_contiguous()
+    with pytest.raises(ValueError):
+        K.signed_digits(*args, mont=False)
 
 
 def test_msm_g1_v2_n128_negative_digits_matches_golden():

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels: wrappers, plain versions, launch counts.
 
 Each kernel replaces one Pallas kernel of `zukelang_tpu/ops/pallas_kernels.py`
-(file:line in its note below) and computes what that kernel computes, in
-the port's 32-bit limb layout.  Its CUDA source is in `csrc/`, built for
+(file:line in its note below; K9 replaces XLA code, the JAX package's
+digit chain) and computes what that code computes, in the port's 32-bit
+limb layout.  Its CUDA source is in `csrc/`, built for
 sm_90a by `build.py`.
 
 Beside every kernel:
@@ -35,7 +36,7 @@ from . import field as F
 
 KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
            "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums",
-           "bucket_scan", "mont_mul_looped", "ntt")
+           "bucket_scan", "mont_mul_looped", "ntt", "signed_digits")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -67,6 +68,7 @@ _ARGTYPES = {
     # the NTT kernel (ops/ntt.py): a pointer to its NttArgs, s0, ns,
     # first, last
     "zk_ntt_pass": [_P, _I32, _I32, _I32, _I32, _P],
+    "zk_signed_digits": [_P, _P, _I64, _I32, _I32, _I32, _I32, _P],
 }
 
 
@@ -859,6 +861,57 @@ def _chain_launch(table, steps, digits, c, seg, keep):
                 build.ptr(sg) if sg is not None else _P(None), _I32(steps),
                 *(build.ptr(x) for x in outs), _I64(n), _I32(int(keep)))
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# K9  signed_digits
+# Replaces no Pallas kernel: the JAX package's digit chain is XLA code
+# (zukelang_tpu/ops/msm.py:45-86 after field_jax.py:375's from_mont), which
+# XLA fuses.  One thread per (MSM, column): the scalar out of Montgomery
+# form in registers (K1's product by 1), then its windows low to high with
+# the signed carry, each digit stored at its row of the (B W, n) block
+# layout.  Bound: bytes (32 B read and 4 W B written a scalar).  Its plain
+# version is the chain it replaced: `F.from_mont`,
+# `msm._scalars_to_signed_windows` and the block layout.
+# ---------------------------------------------------------------------------
+
+def signed_digits_plain(scalars: torch.Tensor, c: int,
+                        mont: bool) -> torch.Tensor:
+    from .msm import _scalars_to_signed_windows   # msm imports this module
+    B, nl, n = scalars.shape
+    flat = scalars.permute(1, 0, 2).reshape(nl, B * n)
+    if mont:
+        flat = F.from_mont(flat, FR)
+    digits = _scalars_to_signed_windows(flat, c)
+    W = digits.shape[0]
+    return digits.reshape(W, B, n).permute(1, 0, 2).reshape(B * W, n)
+
+
+def signed_digits(scalars: torch.Tensor, c: int, mont: bool) -> torch.Tensor:
+    """(B, 8, n) int32 Fr scalars (Montgomery form where `mont`, else
+    standard), 4 <= c <= 16 -> (B W, n) int32 signed digits in
+    [-(2^(c-1) - 1), 2^(c-1)], W = ceil(256 / c): row j W + w holds window
+    w of MSM j, low window first."""
+    if not 4 <= c <= 16:
+        raise ValueError(f"signed_digits: window of {c} bits, not 4 to 16")
+    if (scalars.dim() != 3 or scalars.shape[1] != FR.nl
+            or scalars.dtype != torch.int32 or not scalars.is_contiguous()):
+        raise ValueError("signed_digits takes contiguous int32 (B, "
+                         f"{FR.nl}, n) scalars, got {scalars.dtype} "
+                         f"{tuple(scalars.shape)}")
+    if scalars.device.type == "cpu":
+        return signed_digits_plain(scalars, c, mont)
+    _cuda_args(scalars)
+    B, _nl, n = scalars.shape
+    if B > 65535:
+        raise ValueError(f"signed_digits: {B} MSMs in one batch")
+    W = -(-32 * FR.nl // c)
+    out = torch.empty((B * W, n), dtype=torch.int32, device=scalars.device)
+    if B and n:
+        _launch("signed_digits", "zk_signed_digits", scalars.device,
+                build.ptr(scalars), build.ptr(out), _I64(n), _I32(B),
+                _I32(c), _I32(W), _I32(int(mont)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of `zukelang_tpu/ops/msm.py`:
 
   * `msm_many_staged_deferred` / `msm_staged_deferred`: signed-digit
-    Pippenger.  Per window: digit sort (K4), then the in-chunk segmented
+    Pippenger.  The signed digits of a whole batch come from one K9
+    launch.  Per window: digit sort (K4), then the in-chunk segmented
     mixed-add scan (K5) over the sorted, sign-applied affine points, which
     K5 gathers from the row table itself; then, batched over every window
     of every MSM, the cross-chunk carry scan (K7, its carry adds and its
@@ -593,21 +594,26 @@ def _msm_safe_core(precs, dig_blocks, bases, n_msm: int, c: int,
     return _combine_windows(totals, c, BW // n_msm, n_msm)
 
 
+@functools.lru_cache(maxsize=32)
+def _row_offsets(pmap: tuple, n: int, W: int, device: str) -> torch.Tensor:
+    """(B W,) int32: the first row of MSM j's table in the row tables, for
+    each of its W digit blocks.  Cached, so that a prove makes no copy to
+    the card (a pageable copy waits for the card) to build it."""
+    return torch.tensor([p * 2 * n for p in pmap for _ in range(W)],
+                        dtype=torch.int32, device=device)
+
+
 def _many_digit_blocks(tables, scalars_mont: torch.Tensor, pmap, c: int):
-    """Row tables, signed digit blocks (B*W, n) and per-block table row
-    offsets of a batch of MSMs; scalars_mont is (B, 8, n) Montgomery."""
+    """Row tables, signed digit blocks (B*W, n) (one K9 launch) and
+    per-block table row offsets of a batch of MSMs; scalars_mont is
+    (B, 8, n) Montgomery."""
     n = tables[0][0].shape[-1]
-    B = scalars_mont.shape[0]
-    dev = scalars_mont.device
-    precs = torch.cat([_prep_rows(t) for t in tables], dim=0)
-    flat_m = scalars_mont.permute(1, 0, 2).reshape(FR.nl, B * n)
-    digits = _scalars_to_signed_windows(F.from_mont(flat_m, FR), c)
-    W = digits.shape[0]
-    dig_blocks = digits.reshape(W, B, n).permute(1, 0, 2).reshape(B * W, n)
-    bases = torch.repeat_interleave(
-        torch.tensor([p * 2 * n for p in pmap], dtype=torch.int64,
-                     device=dev), W)
-    return precs, dig_blocks.contiguous(), bases
+    rows = [_prep_rows(t) for t in tables]
+    precs = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    dig_blocks = kern.signed_digits(scalars_mont, c, mont=True)
+    W = dig_blocks.shape[0] // scalars_mont.shape[0]
+    bases = _row_offsets(tuple(pmap), n, W, str(scalars_mont.device))
+    return precs, dig_blocks, bases
 
 
 def _msm_many_safe_impl(tables, S, pmap, c: int, group: str) -> C.Point:
@@ -643,11 +649,10 @@ def msm_many_staged_deferred(tables, scalars_mont_list, pmap,
 
 
 def _single_blocks(points, scalars_std, c):
-    precs = _prep_rows(points)
-    digits = _scalars_to_signed_windows(scalars_std, c).contiguous()
-    bases = torch.zeros(digits.shape[0], dtype=torch.int64,
-                        device=digits.device)
-    return precs, digits, bases
+    digits = kern.signed_digits(scalars_std.contiguous()[None], c, mont=False)
+    bases = _row_offsets((0,), points[0].shape[-1], digits.shape[0],
+                         str(digits.device))
+    return _prep_rows(points), digits, bases
 
 
 def _msm_safe_impl(points, scalars_std, c: int, group: str) -> C.Point:

@@ -89,11 +89,12 @@ def _fit_points(p: C.AffinePoint, n: int) -> C.AffinePoint:
 
 def _msm_device_deferred(points: C.AffinePoint, scalars_mont: torch.Tensor,
                          group: str, c: int = None):
-    """One MSM sized by its scalar count; returns resolve() -> point."""
+    """One MSM sized by its scalar count, a batch of one (its digits, out
+    of Montgomery form, from one K9 launch); returns resolve() -> point."""
     n = msm_mod.padded_width(scalars_mont.shape[1])
-    S = F.from_mont(_pad_scalars(scalars_mont, n), FR)
-    return msm_mod.msm_staged_deferred(_fit_points(points, n), S,
-                                       group=group, c=c)
+    return msm_mod.msm_many_staged_deferred(
+        (_fit_points(points, n),), [_pad_scalars(scalars_mont, n)], pmap=(0,),
+        group=group, c=c)
 
 
 def _fixed_base_std(scalars, group: str, device) -> C.Point:
