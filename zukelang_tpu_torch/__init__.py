@@ -23,7 +23,9 @@ Layering (bottom to top), each module named after its JAX counterpart:
                              tau, dots, powers, fixed-base batches)
   protocols/               — Groth16 and Pinocchio over an engine, batch
                              verification, and the device-resident
-                             Groth16 and Pinocchio
+                             Groth16 and Pinocchio; protocols/device: the
+                             device provers' shared steps (the prove's
+                             MSM executor and spans, the keygen steps)
   testing/, frontend/      — the harness and the reference suite; the
                              Python-syntax front end
   __main__                 — the CLI (compile, prove, verify, bench, test)

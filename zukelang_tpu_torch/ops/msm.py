@@ -603,23 +603,45 @@ def _row_offsets(pmap: tuple, n: int, W: int, device: str) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def _many_digit_blocks(tables, scalars_mont: torch.Tensor, pmap, c: int):
+def _digit_blocks(tables, S: torch.Tensor, pmap, c: int, mont: bool):
     """Row tables, signed digit blocks (B*W, n) (one K9 launch) and
-    per-block table row offsets of a batch of MSMs; scalars_mont is
-    (B, 8, n) Montgomery."""
+    per-block table row offsets of a batch of MSMs; S is (B, 8, n),
+    Montgomery where `mont`, else standard form."""
     n = tables[0][0].shape[-1]
     rows = [_prep_rows(t) for t in tables]
     precs = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
-    dig_blocks = kern.signed_digits(scalars_mont, c, mont=True)
-    W = dig_blocks.shape[0] // scalars_mont.shape[0]
-    bases = _row_offsets(tuple(pmap), n, W, str(scalars_mont.device))
+    dig_blocks = kern.signed_digits(S, c, mont=mont)
+    W = dig_blocks.shape[0] // S.shape[0]
+    bases = _row_offsets(tuple(pmap), n, W, str(S.device))
     return precs, dig_blocks, bases
 
 
-def _msm_many_safe_impl(tables, S, pmap, c: int, group: str) -> C.Point:
+def _msm_safe_impl(tables, S, pmap, c: int, group: str,
+                   mont: bool) -> C.Point:
     """Collision-safe batch of MSMs; run only when the fused one collided."""
-    precs, dig_blocks, bases = _many_digit_blocks(tables, S, pmap, c)
+    precs, dig_blocks, bases = _digit_blocks(tables, S, pmap, c, mont)
     return _msm_safe_core(precs, dig_blocks, bases, len(pmap), c, group)
+
+
+def _launch(tables, S: torch.Tensor, pmap, group: str, c, mont: bool):
+    """The launch behind both public entries (S as `_digit_blocks` takes
+    it): the whole batch enqueued; -> resolve()."""
+    n = tables[0][0].shape[-1]
+    _check_width(n)
+    if c is None:
+        c = auto_window(n)
+    precs, dig_blocks, bases = _digit_blocks(tables, S, pmap, c, mont)
+    util.annotate(c=c, windows=dig_blocks.shape[0] // len(pmap))
+    res, col = _msm_fused_impl(precs, dig_blocks, bases, len(pmap), c, group)
+
+    def resolve():
+        if bool(col):
+            with util.stage("zk.msm.safe_rerun", group=group,
+                            msms=len(pmap)):
+                return _msm_safe_impl(tables, S, pmap, c, group, mont)
+        return res
+
+    return resolve
 
 
 def msm_many_staged_deferred(tables, scalars_mont_list, pmap,
@@ -629,35 +651,8 @@ def msm_many_staged_deferred(tables, scalars_mont_list, pmap,
     Launches the whole batch and returns `resolve()`, which reads the
     collision flag (one host sync) and re-runs the safe path if it is set;
     it returns the batch-B point."""
-    n = tables[0][0].shape[-1]
-    _check_width(n)
-    if c is None:
-        c = auto_window(n)
-    S = torch.stack(list(scalars_mont_list))
-    precs, dig_blocks, bases = _many_digit_blocks(tables, S, pmap, c)
-    util.annotate(c=c, windows=dig_blocks.shape[0] // len(pmap))
-    res, col = _msm_fused_impl(precs, dig_blocks, bases, len(pmap), c, group)
-
-    def resolve():
-        if bool(col):
-            with util.stage("zk.msm.safe_rerun", group=group,
-                            msms=len(pmap)):
-                return _msm_many_safe_impl(tables, S, pmap, c, group)
-        return res
-
-    return resolve
-
-
-def _single_blocks(points, scalars_std, c):
-    digits = kern.signed_digits(scalars_std.contiguous()[None], c, mont=False)
-    bases = _row_offsets((0,), points[0].shape[-1], digits.shape[0],
-                         str(digits.device))
-    return _prep_rows(points), digits, bases
-
-
-def _msm_safe_impl(points, scalars_std, c: int, group: str) -> C.Point:
-    precs, digits, bases = _single_blocks(points, scalars_std, c)
-    return _msm_safe_core(precs, digits, bases, 1, c, group)
+    return _launch(tables, torch.stack(list(scalars_mont_list)), pmap,
+                   group, c, mont=True)
 
 
 def _msm_jacobian(points: C.Point, scalars_std: torch.Tensor, group: str,
@@ -675,29 +670,18 @@ def _msm_jacobian(points: C.Point, scalars_std: torch.Tensor, group: str,
 def msm_staged_deferred(points, scalars_std: torch.Tensor,
                         group: str = "g1", c: int = None):
     """One MSM with standard-form scalars; returns `resolve()` yielding the
-    batch-1 point.  Affine (X, Y) bases take the v2 pipeline (see
-    msm_many_staged_deferred).  Jacobian (X, Y, Z) bases take
+    batch-1 point.  Affine (X, Y) bases take the v2 pipeline as a batch of
+    one (see msm_many_staged_deferred).  Jacobian (X, Y, Z) bases take
     `_msm_jacobian`, whose general adds resolve the degenerate cases in
     the formula: it never collides, and `resolve()` re-dispatches
     nothing."""
-    n = points[0].shape[-1]
+    if len(points) != 3:
+        return _launch((points,), scalars_std.contiguous()[None], (0,),
+                       group, c, mont=False)
     if c is None:
-        c = auto_window(n)
-    if len(points) == 3:
-        res = _msm_jacobian(points, scalars_std, group, c)
-        return lambda: res
-    _check_width(n)
-    precs, digits, bases = _single_blocks(points, scalars_std, c)
-    util.annotate(c=c, windows=digits.shape[0])
-    res, col = _msm_fused_impl(precs, digits, bases, 1, c, group)
-
-    def resolve():
-        if bool(col):
-            with util.stage("zk.msm.safe_rerun", group=group, msms=1):
-                return _msm_safe_impl(points, scalars_std, c, group)
-        return res
-
-    return resolve
+        c = auto_window(points[0].shape[-1])
+    res = _msm_jacobian(points, scalars_std, group, c)
+    return lambda: res
 
 
 def msm_staged_device(points, scalars_std: torch.Tensor, group: str = "g1",

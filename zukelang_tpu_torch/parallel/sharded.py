@@ -31,10 +31,11 @@ assembles.
     is odd the two splits differ, and one all_to_all moves the vectors
     from one transform's output split to the next one's input split.
     One all_gather returns (a, b, h) whole.
-  * Groth16 / Pinocchio proves: the witness reduction, then every MSM
-    term-sharded, then the host assembly: Groth16's in the host library
-    (`groth16_device.assemble_proof`, as on one card), Pinocchio's on
-    golden points, as the JAX package's.
+  * Groth16 / Pinocchio proves: the sharded witness reduction, then the
+    MSMs the protocol states (`groth16_device.msms`,
+    `pinocchio_device.msms`, which the single-card `device.prove` runs
+    too) each term-sharded, then the protocol's own proof from the sums
+    (`groth16_device.assemble_proof`, `pinocchio_device.proof_of_sums`).
 
 `Mesh.counts` counts each collective and the bytes each rank hands to it.
 """
@@ -58,7 +59,9 @@ from ..ops import field as F
 from ..ops import msm as msm_mod
 from ..ops import ntt as ntt_mod
 from ..params import FR
+from ..protocols import device as steps
 from ..protocols import groth16_device as gd
+from ..protocols import pinocchio_device as pd
 
 COLLECTIVES = ("all_gather", "all_to_all")
 
@@ -530,98 +533,44 @@ def sharded_witness_reduction(mesh: Mesh, fc, witness_mont: torch.Tensor):
 # Fully sharded Groth16 / Pinocchio proves
 # ---------------------------------------------------------------------------
 
-def _np2(n: int) -> int:
-    return 1 << max(4, (n - 1).bit_length())
-
-
-def _fit(points, scalars_mont: torch.Tensor, npad: int):
-    """Truncate or pad a (table, scalars) pair to width npad (infinity and
-    zero padding), the scalars made standard form."""
-    return (gd._fit_points(points, npad),
-            F.from_mont(gd._pad_scalars(scalars_mont, npad), FR))
+def _sharded_msms(mesh: Mesh, fc, witness_mont: torch.Tensor, statement,
+                  c: int):
+    """A protocol's prove statement (`device.prove`'s) on the ranks: the
+    sharded witness reduction, then `statement(w, (a, b, h))`'s MSMs each
+    term-sharded, the scalars out of Montgomery form -> (G1 sums, G2
+    sums), golden points in the statement's order, on every rank."""
+    w = witness_mont.to(mesh.device)
+    width, g1, g2 = statement(w, sharded_witness_reduction(mesh, fc, w))
+    return tuple(
+        [sharded_msm(mesh, steps.fit_points(t, width),
+                     F.from_mont(steps.pad_scalars(s, width), FR), group,
+                     c=c) for t, s in pairs]
+        for group, pairs in (("g1", g1), ("g2", g2)))
 
 
 def sharded_groth16_prove(mesh: Mesh, crs, fc, witness_mont: torch.Tensor,
                           rng, c: int = 4):
     """Groth16 prove on the ranks (groth16.ml:123-161): the sharded
-    witness reduction, then the four G1 MSMs and the G2 MSM term-sharded.
-    Equal to `groth16_device.prove_device`'s proof under the same rng (r,
-    then s); the same proof on every rank."""
+    witness reduction, then `groth16_device.msms`' four G1 MSMs and G2 MSM
+    term-sharded and `assemble_proof`.  Equal to
+    `groth16_device.prove_device`'s proof under the same rng (r, then s);
+    the same proof on every rank."""
     r_sc = rng.fr()
     s_sc = rng.fr()
-    w = witness_mont.to(mesh.device)
-    a_comb, b_comb, h = sharded_witness_reduction(mesh, fc, w)
-
-    n = crs.n
-    npad = _np2(n)
-    mids = torch.from_numpy(np.asarray(crs.mids_idx, dtype=np.int64)).to(
-        mesh.device)
-    ti1, a_std = _fit(crs.ti1, a_comb, npad)
-    _, b_std = _fit(crs.ti1, b_comb, npad)
-    tiztd, h_std = _fit(crs.tiztd, h[:, :max(1, n - 1)], npad)
-    ltd_mid, mid_std = _fit(crs.ltd_mid, w[:, mids], npad)
-    ti2 = gd._fit_points(crs.ti2, npad)
-
-    A_sum = sharded_msm(mesh, ti1, a_std, "g1", c=c)
-    B1_sum = sharded_msm(mesh, ti1, b_std, "g1", c=c)
-    H_sum = sharded_msm(mesh, tiztd, h_std, "g1", c=c)
-    Cmid = sharded_msm(mesh, ltd_mid, mid_std, "g1", c=c)
-    B_sum = sharded_msm(mesh, ti2, b_std, "g2", c=c)
-    return gd.assemble_proof(crs, A_sum, B1_sum, H_sum, Cmid, B_sum, r_sc,
-                             s_sc)
+    g1, g2 = _sharded_msms(mesh, fc, witness_mont,
+                           functools.partial(gd.msms, crs), c)
+    return gd.assemble_proof(crs, *g1, *g2, r_sc, s_sc)
 
 
 def sharded_pinocchio_prove(mesh: Mesh, pkey, fc, witness_mont: torch.Tensor,
                             rng, zk: bool = True, c: int = 4):
     """Pinocchio prove on the ranks (pinocchio.ml:193-250 NonZK, :423-515
-    ZK): the sharded witness reduction, 6 G1 and 2 G2 MSMs term-sharded,
-    with ZK the 2 all-variable G1 MSMs, then the fold of the tail variables
-    and the randomisation in the host library (`pinocchio_device.zk_fold`).
-    Equal to `pinocchio_device.prove_device`'s proof under the same rng
-    (dv, dw, dy); the same proof on every rank."""
-    from ..protocols import pinocchio_device as pd
-    from ..protocols.pinocchio import Proof
-
-    w = witness_mont.to(mesh.device)
-    _a, _b, h = sharded_witness_reduction(mesh, fc, w)
-
-    n = pkey.n
-    mids = torch.from_numpy(np.asarray(pkey.mids_idx, dtype=np.int64)).to(
-        mesh.device)
-    c_mid = w[:, mids]
-    V = len(fc.vars_sorted)
-    npad = _np2(max(pkey.si[0].shape[-1],
-                    pkey.v_all[0].shape[-1] if zk else 1,
-                    c_mid.shape[-1]))
-    n_main = min(V, npad)
-    c_all = w[:, :n_main]
-
-    vv_t, mid_std = _fit(pkey.vv, c_mid, npad)
-    si_t, h_std = _fit(pkey.si, h[:, :max(1, n - 1)], npad)
-    g1 = {k: gd._fit_points(getattr(pkey, k), npad)
-          for k in ("yy", "vav", "yay", "bvwy")}
-    ww_t, waw_t = (gd._fit_points(p, npad) for p in (pkey.ww, pkey.waw))
-
-    vv = sharded_msm(mesh, vv_t, mid_std, "g1", c=c)
-    yy = sharded_msm(mesh, g1["yy"], mid_std, "g1", c=c)
-    h_pt = sharded_msm(mesh, si_t, h_std, "g1", c=c)
-    vavv = sharded_msm(mesh, g1["vav"], mid_std, "g1", c=c)
-    yayy = sharded_msm(mesh, g1["yay"], mid_std, "g1", c=c)
-    bvwy = sharded_msm(mesh, g1["bvwy"], mid_std, "g1", c=c)
-    ww = sharded_msm(mesh, ww_t, mid_std, "g2", c=c)
-    waww = sharded_msm(mesh, waw_t, mid_std, "g2", c=c)
-
-    sums = Proof(vv=vv, ww=ww, yy=yy, h=h_pt, vavv=vavv, waww=waww,
-                 yayy=yayy, bvwy=bvwy)
-    if not zk:
-        return sums
-
-    dv = rng.fr()
-    dw = rng.fr()
-    dy = rng.fr()
-    va_t, all_std = _fit(pkey.v_all, c_all, npad)
-    wa_t = gd._fit_points(pkey.w_all, npad)
-    v_all = sharded_msm(mesh, va_t, all_std, "g1", c=c)
-    w_all = sharded_msm(mesh, wa_t, all_std, "g1", c=c)
-    tail = F.unpack_mont(w[:, n_main:V], FR) if pkey.v_all_tail else []
-    return pd.zk_fold(pkey, sums, v_all, w_all, tail, dv, dw, dy)
+    ZK): the sharded witness reduction, then `pinocchio_device.msms`' 6 G1
+    (8 with ZK) and 2 G2 MSMs term-sharded and `proof_of_sums` (with ZK
+    the fold of the tail variables and the randomisation in the host
+    library, `zk_fold`).  Equal to `pinocchio_device.prove_device`'s proof
+    under the same rng (dv, dw, dy); the same proof on every rank."""
+    tail = pd.tail_values(pkey, fc, witness_mont, zk)
+    g1, g2 = _sharded_msms(mesh, fc, witness_mont,
+                           functools.partial(pd.msms, pkey, fc, zk=zk), c)
+    return pd.proof_of_sums(pkey, g1, g2, tail, rng, zk)

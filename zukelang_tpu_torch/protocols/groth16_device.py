@@ -9,15 +9,17 @@ package's and to its golden `Groth16` (`zukelang_tpu/protocols/groth16.py`).
 
 Keygen: the transpose matvec at Lagrange(tau), then fixed-base batches
 (`ops.msm.fixed_base_mul`: K5 tails-only from 128 elements, K3 mixed adds
-below) and `to_affine`.  Prove: the witness reduction (NTT pipeline), one
-batch of four G1 MSMs and one G2 MSM, then the proof assembled from their
-sums in the port's host library (`assemble_proof`: one call of
-`native.groth16_assemble`).  Verify: host pairings (`pairing`, the same
-library).
+below) and `to_affine`, through the steps of `protocols.device`.  Prove:
+`device.prove` runs the witness reduction (NTT pipeline) and the MSMs
+that `msms` states, one batch of four G1 MSMs and one G2 MSM, then the
+proof is assembled from their sums in the port's host library
+(`assemble_proof`: one call of `native.groth16_assemble`).  Verify: host
+pairings (`pairing`, the same library).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -35,6 +37,7 @@ from ..ops import field as F
 from ..ops import msm as msm_mod
 from ..pairing import pairing
 from ..params import FR
+from . import device as steps
 from .groth16 import Proof
 
 
@@ -74,53 +77,6 @@ DEFAULT_FB_WINDOW = 16
 _CRS_POINTS = ("ti1", "ti2", "ltd_mid", "tiztd")
 
 
-def _pad_scalars(s: torch.Tensor, n: int) -> torch.Tensor:
-    cur = s.shape[1]
-    return torch.nn.functional.pad(s, (0, n - cur)) if cur < n else s[:, :n]
-
-
-def _fit_points(p: C.AffinePoint, n: int) -> C.AffinePoint:
-    """Truncate or pad (with the (0, 0) infinity marker) to width n."""
-    cur = p[0].shape[-1]
-    if cur >= n:
-        return tuple(x[..., :n].contiguous() for x in p)
-    return tuple(torch.nn.functional.pad(x, (0, n - cur)) for x in p)
-
-
-def _msm_device_deferred(points: C.AffinePoint, scalars_mont: torch.Tensor,
-                         group: str, c: int = None):
-    """One MSM sized by its scalar count, a batch of one (its digits, out
-    of Montgomery form, from one K9 launch); returns resolve() -> point."""
-    n = msm_mod.padded_width(scalars_mont.shape[1])
-    return msm_mod.msm_many_staged_deferred(
-        (_fit_points(points, n),), [_pad_scalars(scalars_mont, n)], pmap=(0,),
-        group=group, c=c)
-
-
-def _fixed_base_std(scalars, group: str, device) -> C.Point:
-    n = msm_mod.padded_width(len(scalars), msm_mod.FB_MIN_LOG)
-    S = F.pack(list(scalars) + [0] * (n - len(scalars)), FR, device)
-    return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
-
-
-def _fixed_base_mont(scalars_mont: torch.Tensor, group: str) -> C.Point:
-    n = msm_mod.padded_width(scalars_mont.shape[1],
-                             msm_mod.FB_MIN_LOG)
-    S = F.from_mont(_pad_scalars(scalars_mont, n), FR)
-    return msm_mod.fixed_base_mul(S, group=group, c=DEFAULT_FB_WINDOW)
-
-
-def _affine_many(parts: Sequence[C.Point]) -> list:
-    """Jacobian batches of one group -> their affine batches, with one
-    batched inversion (`to_affine`) over all of them."""
-    widths = [p[0].shape[-1] for p in parts]
-    aff = C.to_affine(tuple(torch.cat([p[i] for p in parts], dim=-1)
-                            for i in range(3)))
-    offs = np.cumsum([0] + widths)
-    return [tuple(x[..., offs[k]:offs[k + 1]].contiguous() for x in aff)
-            for k in range(len(parts))]
-
-
 def keygen_device(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence,
                   rng, device=None) -> Tuple[DeviceCRS, DeviceVKey]:
     """Groth16 setup on `device` (default: the card).  mids/ios are the
@@ -137,20 +93,16 @@ def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
     alpha, beta, gamma, delta, tau = (rng.fr() for _ in range(5))
     n = fc.domain_size
     r = params.R
+    c = DEFAULT_FB_WINDOW
 
     # per-variable evaluations at tau (transpose matvec)
-    with util.stage("zk.keygen.lagrange"):
-        lag = te._lagrange_at(fc.logn, tau.n, device)
+    v_at, w_at, y_at = steps.eval_at(fc, tau.n, device)
     nv = len(fc.vars_sorted)
-    with util.stage("zk.keygen.matvec"):
-        v_at, w_at, y_at = (te.transpose_matvec(side, lag, nv)
-                            for side in (fc.l, fc.r, fc.lhs))
-        # L_k(tau) = beta*v_k + alpha*w_k + y_k, then /delta (mids),
-        # /gamma (ios)
-        l_at = F.add(F.add(
-            F.mont_mul(v_at, F.const_mont(beta.n, nv, FR, device), FR),
-            F.mont_mul(w_at, F.const_mont(alpha.n, nv, FR, device), FR),
-            FR), y_at, FR)
+    # L_k(tau) = beta*v_k + alpha*w_k + y_k, then /delta (mids), /gamma (ios)
+    l_at = F.add(F.add(
+        F.mont_mul(v_at, F.const_mont(beta.n, nv, FR, device), FR),
+        F.mont_mul(w_at, F.const_mont(alpha.n, nv, FR, device), FR),
+        FR), y_at, FR)
     mids_idx = np.array([fc.var_index[v] for v in sorted(mids)], dtype=np.int64)
     ios_idx = np.array([fc.var_index[v] for v in sorted(ios)], dtype=np.int64)
     dinv = pow(delta.n, -1, r)
@@ -160,32 +112,21 @@ def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
         cols = l_at[:, torch.from_numpy(idx).to(l_at.device)]
         return F.mont_mul(cols, F.const_mont(k, len(idx), FR, device), FR)
 
-    # host: powers of tau and the Z(tau) ladder (n entries; tau^n enters
-    # the proof only through Z(tau) inside tiztd)
-    with util.stage("zk.keygen.tau_powers", host=True, n=n):
-        ti, acc = [], 1
-        for _ in range(n):
-            ti.append(acc)
-            acc = acc * tau.n % r
-        ztd = (pow(tau.n, n, r) - 1) * dinv % r
-        tizd = [ti[i] * ztd % r for i in range(n - 1)]
+    # the powers of tau and the Z(tau) ladder (n entries; tau^n enters the
+    # proof only through Z(tau) inside tiztd)
+    ti = steps.powers(tau.n, n)
+    ztd = (pow(tau.n, n, r) - 1) * dinv % r
+    tizd = [t * ztd % r for t in ti[:n - 1]]
 
-    # the three G1 tables share one batched inversion in to_affine
-    with util.stage("zk.keygen.fixed_base", group="g1", batch="crs"):
-        g1_parts = (_fixed_base_std(ti, "g1", device),
-                    _fixed_base_std(tizd, "g1", device),
-                    _fixed_base_mont(scaled(mids_idx, dinv), "g1"))
-    with util.stage("zk.keygen.to_affine", group="g1"):
-        ti1, tiztd, ltd_mid = _affine_many(g1_parts)
-    del g1_parts        # the Jacobian tables go before the G2 table comes
-    with util.stage("zk.keygen.fixed_base", group="g2", batch="crs"):
-        g2_part = _fixed_base_std(ti, "g2", device)
-    with util.stage("zk.keygen.to_affine", group="g2"):
-        ti2 = C.to_affine(g2_part)
-    del g2_part
-    with util.stage("zk.keygen.fixed_base", group="g1", batch="vkey"):
-        ltgm_io_pts = C.unpack_g1(
-            _fixed_base_mont(scaled(ios_idx, ginv), "g1"))
+    # the three G1 tables share one batched inversion in to_affine; their
+    # Jacobian forms go before the G2 table comes
+    ti1, tiztd, ltd_mid = steps.to_affine("g1", steps.fixed_base(
+        "g1", "crs", [ti, tizd, scaled(mids_idx, dinv)], c, device))
+    (ti2,) = steps.to_affine("g2", steps.fixed_base("g2", "crs", [ti], c,
+                                                    device))
+    (io_part,) = steps.fixed_base("g1", "vkey", [scaled(ios_idx, ginv)], c,
+                                  device)
+    ltgm_io_pts = C.unpack_g1(io_part)
 
     with util.stage("zk.keygen.host_points", host=True):
         g1, g2 = G1.generator(), G2.generator()
@@ -209,45 +150,24 @@ def prove_device(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
     Montgomery witness (flat.pack_witness layout), moved to the CRS's
     device.  Runs under a span `zk.prove` with a new proof id."""
     with util.stage("zk.prove", request=util.next_request()):
-        return _prove(crs, fc, witness_mont, rng)
+        r_sc = rng.fr()
+        s_sc = rng.fr()
+        g1, g2 = steps.prove(crs.ti1[0].device, fc, witness_mont,
+                             functools.partial(msms, crs), DEFAULT_MSM_WINDOW)
+        return assemble_proof(crs, *g1, *g2, r_sc, s_sc)
 
 
-def _prove(crs: DeviceCRS, fc: flat_mod.FlatCircuit,
-           witness_mont: torch.Tensor, rng) -> Proof:
-    r_sc = rng.fr()
-    s_sc = rng.fr()
-    dev = crs.ti1[0].device
-    nbytes = (witness_mont.numel() * witness_mont.element_size()
-              if witness_mont.device != dev else 0)
-    with util.stage("zk.prove.witness_to_device", bytes=nbytes):
-        witness_mont = witness_mont.to(dev)
-    n = crs.n
-    with util.stage("zk.prove.reduction", n=n):
-        a_comb, b_comb, h = te.run_witness_reduction(fc, witness_mont)
-
-    npad = msm_mod.padded_width(n)
-    c_w = DEFAULT_MSM_WINDOW
-    # the whole G1 side (A, B1, H, C-mid) is one batch of four MSMs over
-    # three tables; the G2 MSM is launched before either result is read
-    with util.stage("zk.prove.msm_launch", group="g1", msms=4, n=npad):
-        mids = torch.from_numpy(crs.mids_idx.astype(np.int64)).to(dev)
-        g1_tables = tuple(_fit_points(t, npad)
-                          for t in (crs.ti1, crs.tiztd, crs.ltd_mid))
-        g1_scalars = [_pad_scalars(s, npad) for s in (
-            a_comb, b_comb, h[:, :max(1, n - 1)], witness_mont[:, mids])]
-        g1_resolve = msm_mod.msm_many_staged_deferred(
-            g1_tables, g1_scalars, pmap=(0, 0, 1, 2), group="g1", c=c_w)
-    with util.stage("zk.prove.msm_launch", group="g2", msms=1, n=npad):
-        b_resolve = _msm_device_deferred(crs.ti2, b_comb, "g2", c=c_w)
-    with util.stage("zk.prove.msm_wait", group="g1"):
-        g1_sums = g1_resolve()
-    with util.stage("zk.prove.unpack", group="g1"):
-        A_sum, B1_sum, H_sum, Cmid = C.unpack_g1(g1_sums)
-    with util.stage("zk.prove.msm_wait", group="g2"):
-        b_sum = b_resolve()
-    with util.stage("zk.prove.unpack", group="g2"):
-        (B_sum,) = C.unpack_g2(b_sum)
-    return assemble_proof(crs, A_sum, B1_sum, H_sum, Cmid, B_sum, r_sc, s_sc)
+def msms(crs: DeviceCRS, w: torch.Tensor, reduction) -> tuple:
+    """The prove's MSMs at the domain's padded width (the statement
+    `device.prove` and the sharded prover run): G1 A = <a, ti1>,
+    B1 = <b, ti1>, H = <h, tiztd>, Cmid = <w_mids, ltd_mid>; G2
+    B = <b, ti2>, with (a, b, h) the witness reduction's."""
+    a, b, h = reduction
+    mids = torch.from_numpy(crs.mids_idx.astype(np.int64)).to(w.device)
+    return (msm_mod.padded_width(crs.n),
+            [(crs.ti1, a), (crs.ti1, b),
+             (crs.tiztd, h[:, :max(1, crs.n - 1)]), (crs.ltd_mid, w[:, mids])],
+            [(crs.ti2, b)])
 
 
 def assemble_proof(crs: DeviceCRS, A: G1, B1: G1, H: G1, Cmid: G1, B: G2,
@@ -277,13 +197,6 @@ def verify(public: Dict, vkey: DeviceVKey, proof) -> bool:
 # Keypair files: the JAX package's save_keypair .npz format (16-bit limbs)
 # ---------------------------------------------------------------------------
 
-def host_point(p):
-    """A host point of either package -> this package's, through its
-    compressed bytes (48 for G1, 96 for G2)."""
-    raw = p.to_compressed_bytes()
-    return (G1 if len(raw) == 48 else G2).of_compressed_bytes(raw)
-
-
 def crs_from_jax(jcrs, device=None) -> DeviceCRS:
     """A JAX-package DeviceCRS (its arrays read as numpy, its host points
     through their bytes) -> this port's, on `device` (default: the card)."""
@@ -291,7 +204,7 @@ def crs_from_jax(jcrs, device=None) -> DeviceCRS:
     pts = {name: C.from_jax(tuple(np.asarray(x) for x in getattr(jcrs, name)),
                             device) for name in _CRS_POINTS}
     return DeviceCRS(
-        **{k: host_point(getattr(jcrs, k)) for k in
+        **{k: steps.host_point(getattr(jcrs, k)) for k in
            ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")},
         mids_idx=np.asarray(jcrs.mids_idx), n=int(jcrs.n), **pts)
 

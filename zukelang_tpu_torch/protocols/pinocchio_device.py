@@ -12,16 +12,19 @@ Keygen: Lagrange values at s, three transpose matvecs (every QAP
 polynomial at s), the per-variable scalar tables (K1 products), 12+
 fixed-base batches (`ops.msm.fixed_base_mul`: K5 from 128 elements, K3
 below, which takes the io batches and the all-variable tails) and
-`to_affine`, under a span `zk.keygen`.  Prove (a span `zk.prove`): the
-witness reduction, one batch of 6 G1 MSMs (8 with ZK) and one batch of 2
-G2 MSMs, both launched before either is resolved, then with ZK the fold
-of the tail variables and the randomisation in the port's host library
+`to_affine`, under a span `zk.keygen`, through the steps of
+`protocols.device`.  Prove (a span `zk.prove`): `device.prove` runs the
+witness reduction and the MSMs that `msms` states, one batch of 6 G1 MSMs
+(8 with ZK) and one batch of 2 G2 MSMs, both launched before either is
+resolved, then `proof_of_sums` makes the proof, with ZK the fold of the
+tail variables and the randomisation in the port's host library
 (`zk_fold`: one call of `native.pinocchio_zk_fold`).  Verify: 13 host
 pairings (`protocols.pinocchio.verify`).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -37,6 +40,7 @@ from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as msm_mod
 from ..params import FR
+from . import device as steps
 from . import groth16_device as gd
 from .pinocchio import Proof, VKey, verify  # noqa: F401  (verify re-exported)
 
@@ -114,12 +118,8 @@ def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
     r = params.R
     t = (pow(s.n, n, r) - 1) % r    # target(s), Z = x^n - 1 on the domain
 
-    with util.stage("zk.keygen.lagrange"):
-        lag = te._lagrange_at(fc.logn, s.n, device)
+    v_at, w_at, y_at = steps.eval_at(fc, s.n, device)
     V = len(fc.vars_sorted)
-    with util.stage("zk.keygen.matvec"):
-        v_at, w_at, y_at = (te.transpose_matvec(side, lag, V)
-                            for side in (fc.l, fc.r, fc.lhs))
     with util.stage("zk.keygen.scalar_tables"):
         vv_s, ww_s, yy_s, vav_s, waw_s, yay_s, bvwy_s = _scalar_tables(
             v_at, w_at, y_at, rv, rw, ry, av, aw, ay, b)
@@ -134,34 +134,23 @@ def _keygen(fc: flat_mod.FlatCircuit, mids: Sequence, ios: Sequence, rng,
     # the all-variable tables hold the MSM family's width on the device;
     # the variables beyond it become host tails
     n_main = min(V, msm_mod.padded_width(max(n, len(mids_idx))))
-    with util.stage("zk.keygen.tau_powers", host=True, n=n):
-        ti, acc = [], 1
-        for _ in range(n):      # s^0..s^(n-1); s^n enters only through t1
-            ti.append(acc)
-            acc = acc * s.n % r
+    ti = steps.powers(s.n, n)   # s^0..s^(n-1); s^n enters only through t1
+    c = gd.DEFAULT_FB_WINDOW
 
-    def table(batch: str, group: str, scalars_mont) -> C.Point:
-        with util.stage("zk.keygen.fixed_base", group=group, batch=batch):
-            return gd._fixed_base_mont(scalars_mont, group)
-
-    def powers(batch: str, group: str) -> C.Point:
-        with util.stage("zk.keygen.fixed_base", group=group, batch=batch):
-            return gd._fixed_base_std(ti, group, device)
+    def table(batch: str, group: str, scalars) -> C.Point:
+        return steps.fixed_base(group, batch, [scalars], c, device)[0]
 
     g1_parts = [table(name, "g1", tab[:, mid_cols]) for name, tab in (
         ("vv", vv_s), ("yy", yy_s), ("vav", vav_s), ("yay", yay_s),
         ("bvwy", bvwy_s))]
     g1_parts += [table("v_all", "g1", v_at[:, :n_main]),
-                 table("w_all", "g1", w_at[:, :n_main]), powers("si", "g1")]
-    with util.stage("zk.keygen.to_affine", group="g1"):
-        vv_p, yy_p, vav_p, yay_p, bvwy_p, v_all_p, w_all_p, si = (
-            gd._affine_many(g1_parts))
+                 table("w_all", "g1", w_at[:, :n_main]), table("si", "g1", ti)]
+    vv_p, yy_p, vav_p, yay_p, bvwy_p, v_all_p, w_all_p, si = (
+        steps.to_affine("g1", g1_parts))
     del g1_parts        # the Jacobian tables go before the G2 tables come
-    g2_parts = [table("ww", "g2", ww_s[:, mid_cols]),
-                table("waw", "g2", waw_s[:, mid_cols]), powers("si2", "g2")]
-    with util.stage("zk.keygen.to_affine", group="g2"):
-        ww_p, waw_p, si2 = gd._affine_many(g2_parts)
-    del g2_parts
+    ww_p, waw_p, si2 = steps.to_affine("g2", [
+        table("ww", "g2", ww_s[:, mid_cols]),
+        table("waw", "g2", waw_s[:, mid_cols]), table("si2", "g2", ti)])
     if n_main < V:
         v_all_tail = C.unpack_g1(table("v_all_tail", "g1",
                                        v_at[:, n_main:]))[:V - n_main]
@@ -207,71 +196,53 @@ def prove_device(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
     moved to the proving key's device.  Runs under a span `zk.prove` with
     a new proof id."""
     with util.stage("zk.prove", request=util.next_request()):
-        return _prove(pkey, fc, witness_mont, rng, zk)
+        tail = tail_values(pkey, fc, witness_mont, zk)
+        g1, g2 = steps.prove(pkey.si[0].device, fc, witness_mont,
+                             functools.partial(msms, pkey, fc, zk=zk),
+                             gd.DEFAULT_MSM_WINDOW)
+        return proof_of_sums(pkey, g1, g2, tail, rng, zk)
 
 
-def _prove(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
-           witness_mont: torch.Tensor, rng, zk: bool) -> Proof:
-    dev = pkey.si[0].device
+def tail_values(pkey: DevicePKey, fc: flat_mod.FlatCircuit,
+                witness_mont: torch.Tensor, zk: bool) -> list:
+    """The witness values of the columns beyond the all-variable tables
+    (the key's tails), read where the witness is handed in (on the host,
+    no read-back from the card); none without ZK."""
     V = len(fc.vars_sorted)
-    n_main = V - len(pkey.v_all_tail)
-    # the tail columns' values, read where the witness is handed in (on the
-    # host, no read-back from the card)
-    tail = (F.unpack_mont(witness_mont[:, n_main:V], FR)
+    return (F.unpack_mont(witness_mont[:, V - len(pkey.v_all_tail):V], FR)
             if zk and pkey.v_all_tail else [])
-    nbytes = (witness_mont.numel() * witness_mont.element_size()
-              if witness_mont.device != dev else 0)
-    with util.stage("zk.prove.witness_to_device", bytes=nbytes):
-        witness_mont = witness_mont.to(dev)
-    n = pkey.n
-    with util.stage("zk.prove.reduction", n=n):
-        _a, _b, h = te.run_witness_reduction(fc, witness_mont)
 
-    npad = msm_mod.padded_width(max(pkey.si[0].shape[-1], len(pkey.mids_idx),
-                                    n_main if zk else 1))
 
-    def pts(p):
-        return gd._fit_points(p, npad)
-
-    def sc(x):
-        return gd._pad_scalars(x, npad)
-
-    g1_tables = [pkey.vv, pkey.yy, pkey.si, pkey.vav, pkey.yay, pkey.bvwy]
+def msms(pkey: DevicePKey, fc: flat_mod.FlatCircuit, w: torch.Tensor,
+         reduction, zk: bool) -> tuple:
+    """The prove's MSMs (the statement `device.prove` and the sharded
+    prover run): G1 vv, yy, h, vavv, yayy, bvwy (with ZK also the
+    all-variable v_all, w_all over the key's columns), G2 ww, waww."""
+    n_main = len(fc.vars_sorted) - len(pkey.v_all_tail)
+    width = msm_mod.padded_width(max(pkey.si[0].shape[-1],
+                                     len(pkey.mids_idx), n_main if zk else 1))
+    c_mid = w[:, torch.from_numpy(pkey.mids_idx).to(w.device)]
+    g1 = [(pkey.vv, c_mid), (pkey.yy, c_mid),
+          (pkey.si, reduction[2][:, :max(1, pkey.n - 1)]),
+          (pkey.vav, c_mid), (pkey.yay, c_mid), (pkey.bvwy, c_mid)]
     if zk:
-        g1_tables += [pkey.v_all, pkey.w_all]
-    # launch both batches before either is resolved: resolving reads the
-    # collision flag, a host sync
-    with util.stage("zk.prove.msm_launch", group="g1",
-                    msms=len(g1_tables), n=npad):
-        c_mid = sc(witness_mont[:, torch.from_numpy(pkey.mids_idx).to(dev)])
-        g1_scalars = [c_mid, c_mid, sc(h[:, :max(1, n - 1)]), c_mid, c_mid,
-                      c_mid]
-        if zk:
-            c_all = sc(witness_mont[:, :n_main])
-            g1_scalars += [c_all, c_all]
-        g1_resolve = msm_mod.msm_many_staged_deferred(
-            tuple(pts(p) for p in g1_tables), g1_scalars,
-            pmap=tuple(range(len(g1_tables))), group="g1",
-            c=gd.DEFAULT_MSM_WINDOW)
-    with util.stage("zk.prove.msm_launch", group="g2", msms=2, n=npad):
-        g2_resolve = msm_mod.msm_many_staged_deferred(
-            (pts(pkey.ww), pts(pkey.waw)), [c_mid, c_mid], pmap=(0, 1),
-            group="g2", c=gd.DEFAULT_MSM_WINDOW)
-    with util.stage("zk.prove.msm_wait", group="g1"):
-        g1_sums = g1_resolve()
-    with util.stage("zk.prove.unpack", group="g1"):
-        g1_pts = C.unpack_g1(g1_sums)
-    with util.stage("zk.prove.msm_wait", group="g2"):
-        g2_sums = g2_resolve()
-    with util.stage("zk.prove.unpack", group="g2"):
-        ww, waww = C.unpack_g2(g2_sums)
-    vv, yy, h_pt, vavv, yayy, bvwy = g1_pts[:6]
-    sums = Proof(vv=vv, ww=ww, yy=yy, h=h_pt, vavv=vavv, waww=waww,
+        c_all = w[:, :n_main]
+        g1 += [(pkey.v_all, c_all), (pkey.w_all, c_all)]
+    return width, g1, [(pkey.ww, c_mid), (pkey.waw, c_mid)]
+
+
+def proof_of_sums(pkey: DevicePKey, g1: Sequence, g2: Sequence,
+                  tail: Sequence, rng, zk: bool) -> Proof:
+    """The proof from the sums of `msms`' MSMs: the NonZK proof, or with
+    ZK dv, dw, dy drawn and `zk_fold`."""
+    vv, yy, h, vavv, yayy, bvwy = g1[:6]
+    ww, waww = g2
+    sums = Proof(vv=vv, ww=ww, yy=yy, h=h, vavv=vavv, waww=waww,
                  yayy=yayy, bvwy=bvwy)
     if not zk:
         return sums
     dv, dw, dy = rng.fr(), rng.fr(), rng.fr()
-    return zk_fold(pkey, sums, g1_pts[6], g1_pts[7], tail, dv, dw, dy)
+    return zk_fold(pkey, sums, g1[6], g1[7], tail, dv, dw, dy)
 
 
 def zk_fold(pkey: DevicePKey, sums: Proof, v_all: G1, w_all: G1,
@@ -304,10 +275,11 @@ def pkey_from_jax(jpk, device=None) -> DevicePKey:
     batches = {name: C.from_jax(tuple(np.asarray(x) for x in
                                       getattr(jpk, name)[:2]), device)
                for name in _BATCHES}
-    singles = {name: gd.host_point(getattr(jpk, name)) for name in _SINGLES}
+    singles = {name: steps.host_point(getattr(jpk, name))
+               for name in _SINGLES}
     return DevicePKey(
         **batches, **singles,
-        v_all_tail=[gd.host_point(p) for p in jpk.v_all_tail],
-        w_all_tail=[gd.host_point(p) for p in jpk.w_all_tail],
+        v_all_tail=[steps.host_point(p) for p in jpk.v_all_tail],
+        w_all_tail=[steps.host_point(p) for p in jpk.w_all_tail],
         mids_idx=np.asarray(jpk.mids_idx, dtype=np.int64), n=int(jpk.n))
 
