@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
      (G1) and 20 (G2) points with counts 13 w; K3 at 2^12 and 16 lanes,
      and K3's chain on 16 lanes of 16 windows with a doubling lane; K5 on
      a small row table with and without bucket tails, a forced collision
-     flagged;
+     flagged; K5's G2 kernel (thread pairs) at the G2 MSM shapes of a
+     2^16 and a 2^20 prove (20 x 2^16 and 16 x 2^20 positions, nb 4097
+     and 32,769; plain on 4 block rows, a forced collision flagged) and in
+     the fixed-base mode (seg null, 2^16 elements x 16 windows);
      the NTT kernel's four forms at 2^1, 2^2, 2^10, 2^11, 2^12 and 2^16
      (a batch of 3) and 2^20 (one vector); K8 at 2^16 (G1, G2) at g = 1
      and at the wrapper's g, with a forced collision in every 11th chunk
@@ -146,9 +149,11 @@ Each path of phases 4 to 11 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
 add at most MAX_ADD_LAUNCHES times a prove; in phases 4, 5 and 8 K9
-twice a prove (once a batch) and K1 never.  Then one JSON
-line with the kernel summaries (each kernel's last check on a whole
-input), the card line, and the last line {"ok": true, "device": {...}}.
+twice a prove (once a batch) and K1 never, K5's G2 kernel once a prove
+(the G2 batch) and at least once in keygen (its G2 fixed-base batch).
+Then one JSON line with the kernel summaries (each kernel's last check on
+a whole input), the card line, and the last line {"ok": true, "device":
+{...}}.
 
 Without CUDA it stops at once with a non-zero exit and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -195,6 +200,9 @@ REPLACES = {
                    "zukelang_tpu/ops/pallas_kernels.py:1173"),
     "bucket_scan_rows": ("zukelang_tpu_torch/csrc/bucket_scan.cu",
                          "zukelang_tpu/ops/pallas_kernels.py:1296"),
+    # K5 on G2: a thread pair a lane, behind the same entry point
+    "bucket_scan_rows_g2": ("zukelang_tpu_torch/csrc/bucket_scan_g2.cu",
+                            "zukelang_tpu/ops/pallas_kernels.py:1296"),
     "jac_scan": ("zukelang_tpu_torch/csrc/jac_scan.cu",
                  "zukelang_tpu/ops/pallas_kernels.py:986"),
     "weighted_chunk_sums": ("zukelang_tpu_torch/csrc/weighted_sums.cu",
@@ -215,8 +223,8 @@ REPLACES = {
 
 # the kernels each path must launch
 PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
-                 "digit_sort", "bucket_scan_rows", "jac_scan",
-                 "weighted_chunk_sums", "ntt", "signed_digits")
+                 "digit_sort", "bucket_scan_rows", "bucket_scan_rows_g2",
+                 "jac_scan", "weighted_chunk_sums", "ntt", "signed_digits")
 NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
 MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # K2 add launches a prove: a Hillis-Steele tail, a combine, the carry
@@ -569,12 +577,19 @@ def _digit_edges(c: int):
             (1 << 254) | (0x1FFF << 234)]
 
 
+def _k5_name(group: str) -> str:
+    """The launch counter (and check rows) of K5's kernel for `group`."""
+    return "bucket_scan_rows_g2" if group == "g2" else "bucket_scan_rows"
+
+
 def _k5_work(group, rows, idx, seg, K):
     """work(got) of a K5 call: 11 coordinate products per continuing
     step with both operands finite; bytes: the row table, indices and
-    segment ids read once, the outputs written once."""
+    segment ids read once, the outputs written once.  seg None: one
+    segment a chunk."""
     inf = (rows == 0).all(dim=1)[idx.reshape(-1).long()].reshape(-1, K).t()
-    sk = seg.reshape(-1, K).t()
+    sk = (seg.reshape(-1, K).t() if seg is not None else
+          idx.new_zeros(inf.shape))
     restart = sk != sk.roll(1, 0)
     restart[0] = True
     madds = _scan_adds(inf, restart)
@@ -620,6 +635,75 @@ def k8_at_widths(what: str, points, seg, Kc: int, group: str,
 # per NTT form: (products a point besides the butterflies, tables read)
 NTT_FORMS = {"ntt": (0, 0), "intt": (1, 0), "coset_ntt": (1, 1),
              "coset_intt": (2, 1)}
+
+
+def k5_g2_prove_shapes(dev, rng: random.Random):
+    """K5's G2 kernel at the provers' shapes, on random canonical rows made
+    on the card: the G2 MSM of a 2^16 prove (20 block rows of 2^16 sorted
+    positions over a 2^17-row table, nb = 4097, c = 13) and of a 2^20
+    prove (16 of 2^20 over 2^21 rows, nb = 32,769, c = 16), position 1 of
+    each block row repeating position 0 in its segment (flagged), held
+    against the plain version on 4 block rows; then the fixed-base mode
+    (seg null) at a keygen batch of 2^16 elements over 16 windows of 2^16
+    rows (K = 16), whole."""
+    import torch
+    from zukelang_tpu_torch.ops import kernels as K
+    from zukelang_tpu_torch.params import FQ
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rng.randrange(1 << 62))
+
+    def rand_rows(n):
+        w = torch.randint(0, 1 << 32, (n, 48), dtype=torch.int64, device=dev,
+                          generator=gen)
+        w[:, 11::12] %= FQ.p >> 352              # below p: canonical
+        return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+    for B, logn, nb in ((20, 16, (1 << 12) + 1), (16, 20, (1 << 15) + 1)):
+        n, nrows = 1 << logn, 1 << (logn + 1)
+        tab = rand_rows(nrows)
+        tab[7] = 0
+        idx = torch.randint(0, nrows, (B, n), dtype=torch.int32, device=dev,
+                            generator=gen)
+        idx[:, 5] = 7
+        idx[:, 1] = idx[:, 0]
+        seg = torch.sort(torch.randint(0, nb, (B, n), device=dev,
+                                       generator=gen))[0].to(torch.int32)
+        seg[:, 1] = seg[:, 0]
+        M = n // 32
+        S = _rows_sample(B)
+        rs = torch.tensor(S, device=dev)
+        lanes = (rs[:, None] * M + torch.arange(M, device=dev)).reshape(-1)
+        bcols = (rs[:, None] * nb + torch.arange(nb, device=dev)).reshape(-1)
+        log(f"K5 bucket_scan_rows g2 at the 2^{logn} prove's shape ({B} x "
+            f"2^{logn} positions of a 2^{logn + 1}-row table, K = 32, "
+            f"nb = {nb})")
+        record_sampled(
+            "bucket_scan_rows_g2",
+            lambda: K.bucket_scan_rows(tab, idx, seg, 32, "g2", nb),
+            lambda: K.bucket_scan_rows_plain(tab, idx[rs], seg[rs], 32, "g2",
+                                             nb),
+            lambda got: (tuple(x[..., lanes] for x in got[0]),
+                         tuple(x[..., bcols] for x in got[1]), got[2][lanes]),
+            _k5_work("g2", tab, idx, seg, 32), f"block rows {S} of {B}")
+        flag = K.bucket_scan_rows(tab, idx, seg, 32, "g2", nb)[2]
+        if not bool(flag[::M].all()):
+            raise AssertionError(f"bucket_scan_rows g2 at 2^{logn}: the "
+                                 "forced collision is not flagged")
+        del tab, idx, seg
+    W, m, c = 16, 1 << 16, 16
+    tab = rand_rows(W << c)
+    tab[::1 << c] = 0                            # digit 0: infinity
+    dig = torch.randint(0, 1 << c, (m, W), dtype=torch.int32, device=dev,
+                        generator=gen)
+    dig[::7, 3] = 0
+    idx = (dig + (torch.arange(W, dtype=torch.int32, device=dev) << c)
+           ).contiguous()
+    log(f"K5 bucket_scan_rows g2, fixed base ({m} elements x {W} windows of "
+        f"2^{c} rows, seg null)")
+    record("bucket_scan_rows_g2",
+           lambda: K.bucket_scan_rows(tab, idx, None, W, "g2"),
+           lambda: K.bucket_scan_rows_plain(tab, idx, None, W, "g2"),
+           _k5_work("g2", tab, idx, None, W), plain_reps=0)
 
 
 def _ntt_work(x, form: str):
@@ -815,7 +899,7 @@ def kernel_checks(dev, rng: random.Random):
         for nb in (None, nb5):
             log(f"K5 bucket_scan_rows {group} ({B5} x {n5} rows of a "
                 f"{nrows}-row table, K = 32, nb = {nb})")
-            record("bucket_scan_rows",
+            record(_k5_name(group),
                    lambda: K.bucket_scan_rows(tab, idx5, seg5, 32, group, nb),
                    lambda: K.bucket_scan_rows_plain(tab, idx5, seg5, 32,
                                                     group, nb),
@@ -824,6 +908,7 @@ def kernel_checks(dev, rng: random.Random):
             if not bool(flag[::n5 // 32].all()):
                 raise AssertionError("bucket_scan_rows: the forced collision "
                                      "is not flagged")
+    k5_g2_prove_shapes(dev, rng)
 
     n7 = 1 << 15
     for group in ("g1", "g2"):
@@ -912,15 +997,23 @@ def _diff(after: dict, before: dict) -> dict:
 
 def _check_launches(path: str, counts: dict, required,
                     keygen_madds: int = None, small_batches: int = None,
-                    per_prove: dict = None) -> None:
+                    per_prove: dict = None, keygen: dict = None) -> None:
     """Every kernel of the path launched; K3 once a small fixed-base
     batch of keygen (its chain); K2's add at most MAX_ADD_LAUNCHES[path]
     times a prove; K9 once each of a prove's two MSM batches, and K1 not
-    at all (K9 takes the scalars out of Montgomery form)."""
+    at all (K9 takes the scalars out of Montgomery form); K5's G2 kernel
+    once a prove (its G2 MSM batch) and in keygen (its G2 fixed-base
+    batches of 128 elements or more)."""
     log(f"launch counts over the {path} run: {counts}")
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{path} never launched: {missing}")
+    if per_prove is not None and per_prove["bucket_scan_rows_g2"] != 1:
+        raise AssertionError(f"{path}: {per_prove['bucket_scan_rows_g2']} "
+                             "launches of K5's G2 kernel a prove, expected 1")
+    if keygen is not None and keygen["bucket_scan_rows_g2"] < 1:
+        raise AssertionError(f"{path}: keygen's G2 fixed-base batches did not "
+                             "launch K5's G2 kernel")
     if keygen_madds is not None and keygen_madds <= 0:
         raise AssertionError(f"{path}: K3 did not launch in keygen")
     if small_batches is not None and keygen_madds != small_batches:
@@ -1009,7 +1102,8 @@ def groth16_path(dev, log_constraints: int, sample: bool = False):
     log(f"pack_witness_s {time.time() - t0:.3f}  (host packing of "
         f"{len(run.inst.witness)} witness values and the copy to the card)")
     _check_launches(path, counts, PROVE_KERNELS, keygen_madds,
-                    len(keygen_seen["_fixed_base_madd"]), run.prove_launches)
+                    len(keygen_seen["_fixed_base_madd"]), run.prove_launches,
+                    run.keygen_launches)
     if keygen_madds != 1:
         raise AssertionError(f"{path}: {keygen_madds} K3 launches in keygen, "
                              "expected 1 (the io batch's chain)")
@@ -1197,7 +1291,7 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
             f"{'whole' if whole else 'sampled'}: {tuple(idx.shape)} positions "
             f"of a {rows.shape[0]}-row table, K = {kc}, nb = {nb})")
         if whole:
-            record("bucket_scan_rows",
+            record(_k5_name(group),
                    lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
                    lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group,
                                                     nb),
@@ -1209,7 +1303,7 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
         bcols = (rs[:, None] * nb
                  + torch.arange(nb, device=idx.device)).reshape(-1)
         record_sampled(
-            "bucket_scan_rows",
+            _k5_name(group),
             lambda: K.bucket_scan_rows(rows, idx, seg, kc, group, nb),
             lambda: K.bucket_scan_rows_plain(rows, idx[rs], seg[rs], kc, group,
                                              nb),
@@ -1320,7 +1414,7 @@ def pinocchio_path(dev, log_constraints: int):
     if not ok:
         raise AssertionError("pinocchio: NonZK proof does not verify")
     _check_launches("pinocchio", counts, PROVE_KERNELS, keygen_madds,
-                    len(small), per_prove)
+                    len(small), per_prove, run.keygen_launches)
     RUNS[f"pinocchio_2^{log_constraints}"] = run
     return counts, per_prove
 
@@ -2075,7 +2169,7 @@ def _msm_call_checks():
         B, M = idx.shape[0], idx.shape[1] // kc
         work = _k5_work(group, rows, idx, seg, kc)
         if B * M <= SAMPLE_ABOVE_CHUNKS:
-            rec("bucket_scan_rows", lambda: fn(*a, **kw),
+            rec(_k5_name(group), lambda: fn(*a, **kw),
                 lambda: K.bucket_scan_rows_plain(rows, idx, seg, kc, group,
                                                  nb), work)
             return
@@ -2086,7 +2180,7 @@ def _msm_call_checks():
         bcols = (rs[:, None] * nb
                  + torch.arange(nb, device=idx.device)).reshape(-1)
         record_sampled(
-            "bucket_scan_rows", lambda: fn(*a, **kw),
+            _k5_name(group), lambda: fn(*a, **kw),
             lambda: K.bucket_scan_rows_plain(rows, idx[rs], seg[rs], kc,
                                              group, nb),
             lambda got: (tuple(x[..., lanes] for x in got[0]),

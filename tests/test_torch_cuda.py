@@ -191,9 +191,11 @@ def test_bucket_scan_kernel_equals_plain(dev, group, with_nb):
     for case in ("uniform", "equal", "distinct"):
         rows, idx, seg, nb = _k5_inputs(group, case, dev)
         nb = nb if with_nb else None
-        before = K.LAUNCHES["bucket_scan_rows"]
+        counter = ("bucket_scan_rows_g2" if group == "g2"
+                   else "bucket_scan_rows")
+        before = K.LAUNCHES[counter]
         got = K.bucket_scan_rows(rows, idx, seg, 32, group, nb)
-        assert K.LAUNCHES["bucket_scan_rows"] == before + 1
+        assert K.LAUNCHES[counter] == before + 1
         want = K.bucket_scan_rows_plain(rows, idx, seg, 32, group, nb)
         assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
         if with_nb:
@@ -210,6 +212,51 @@ def test_bucket_scan_kernel_equals_plain(dev, group, with_nb):
     want = K.bucket_scan_rows_plain(rows, idx, None, 32, group)
     assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
     assert torch.equal(got[2], want[2])
+
+
+def _negate_row(rows, dst, src):
+    """Row dst = -(row src): the same X, Y -> p - Y (Y != 0)."""
+    from zukelang_tpu_torch.params import FQ
+    rows[dst] = rows[src]
+    for c in range(2):
+        w = rows[src, 24 + 12 * c:36 + 12 * c].cpu().tolist()
+        v = sum((x & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(w))
+        v = (FQ.p - v) % FQ.p
+        neg = [(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
+        rows[dst, 24 + 12 * c:36 + 12 * c] = torch.tensor(
+            [x - (1 << 32) if x >= 1 << 31 else x for x in neg],
+            dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["partial_block", "fixed_base"])
+def test_bucket_scan_g2_pairs_equal_plain(dev, case):
+    """K5's G2 kernel (a thread pair a lane) against its plain version:
+    a lane count that leaves the last block of 64 lanes part-filled,
+    infinity rows, P = Q (flagged), P = -Q inside a segment, buckets no
+    digit reaches; and the fixed-base mode (seg null, K = 16).  One launch
+    a call, counted under its own name."""
+    rows, idx, seg, nb = _k5_inputs("g2", "uniform", dev, B=5, n=32 * 13)
+    Kc, nb = (16, None) if case == "fixed_base" else (32, nb + 7)
+    _negate_row(rows, 20, 21)
+    idx[:, Kc], idx[:, Kc + 1] = 21, 20     # a chunk that starts P, -P
+    seg[:, Kc + 1] = seg[:, Kc]
+    idx[:, 100:104] = 7                      # a run of infinity rows
+    if case == "fixed_base":
+        seg = None
+    g1_before = K.LAUNCHES["bucket_scan_rows"]
+    before = K.LAUNCHES["bucket_scan_rows_g2"]
+    got = K.bucket_scan_rows(rows, idx, seg, Kc, "g2", nb)
+    assert K.LAUNCHES["bucket_scan_rows_g2"] == before + 1
+    assert K.LAUNCHES["bucket_scan_rows"] == g1_before
+    want = K.bucket_scan_rows_plain(rows, idx, seg, Kc, "g2", nb)
+    assert got[0][0].shape[-1] % 64 != 0     # the last block part-filled
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    if nb is not None:
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        empty = got[1][2].reshape(24, idx.shape[0], nb)[..., -7:]
+        assert not bool(empty.any())         # buckets no digit reaches
+    assert torch.equal(got[2], want[2])
+    assert bool(got[2][::idx.shape[1] // Kc].all())   # P = Q at position 1
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

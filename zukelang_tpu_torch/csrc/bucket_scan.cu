@@ -15,18 +15,18 @@
 // where the sorted segment id changes (seg null: one segment per chunk).
 // A block first stages its lanes' K indices and segment ids in shared
 // memory with coalesced loads (rows padded to K + 1 words, so the lanes'
-// reads hit distinct banks); each lane then loads its 96 B (G1) or 192 B
-// (G2) row per step with 16-byte loads.  It writes each chunk's final
-// accumulator (tails, (rows, lanes)) and, with nb, each bucket's in-chunk
-// tail: at the step where the segment ends (the digit changes, or the
-// block row ends), the accumulator goes to column b nb + seg of the
-// (rows, B nb) bucket outputs, which the wrapper zero-fills.
-// Bound: the 11 Fq products (x3 for G2) of each continuing step with both
-// operands finite.  The madd is inlined; its field products are the
-// coordinate fields' out-of-line calls (inlined, G1's were no faster and
-// G2's spilled 1.8 KB at the register cap).  Blocks are sized so the card
-// holds the Groth16 prove's 40,960 G2 lanes in one wave (5 blocks of 64
-// per SM) and the 163,840 G1 lanes in whole waves (4 blocks of 128).
+// reads hit distinct banks); each lane then loads its 96 B (G1) row per
+// step with 16-byte loads.  It writes each chunk's final accumulator
+// (tails, (rows, lanes)) and, with nb, each bucket's in-chunk tail: at
+// the step where the segment ends (the digit changes, or the block row
+// ends), the accumulator goes to column b nb + seg of the (rows, B nb)
+// bucket outputs, which the wrapper zero-fills.
+// Bound: the 11 Fq products of each continuing step with both operands
+// finite.  The madd is inlined; its field products are the coordinate
+// field's out-of-line calls (inlined they were no faster).  Blocks of 128,
+// 4 an SM, hold the Groth16 prove's 163,840 G1 lanes at 2^16 in whole
+// waves.  G2 runs behind the same entry point on thread pairs, one Fq
+// component a thread (bucket_scan_g2.cu): one thread a lane spilled.
 //
 // K8 replaces bucket_scan_pallas (pallas_kernels.py:807; kernel
 // _seg_scan_kernel :709, call _seg_scan_call :778): the inclusive
@@ -83,6 +83,7 @@
 // copies, taking the L1 that holds its spills, measured slower (PERF.md
 // §6).
 #include "curve.cuh"
+#include "scan_rows.cuh"
 
 namespace zk {
 
@@ -138,8 +139,8 @@ __device__ __forceinline__ void load_row(typename G::E& x, typename G::E& y,
 }
 
 // Lane (chunk) l = b M + m covers positions l K .. l K + K - 1 of the
-// (B, n) idx / seg arrays, n = M K.  T threads a block, at least
-// `BlocksPerSM` blocks an SM (the register cap).
+// (B, n) idx / seg arrays, n = M K (scan_rows.cuh).  T threads a block,
+// at least `BlocksPerSM` blocks an SM (the register cap).
 template <class G, int T, int BlocksPerSM>
 __global__ void __launch_bounds__(T, BlocksPerSM)
 k_bucket_scan_rows(const uint32_t* __restrict__ rows,
@@ -154,23 +155,14 @@ k_bucket_scan_rows(const uint32_t* __restrict__ rows,
   int32_t* s_seg = staged + T * KP;
   const int64_t lane0 = (int64_t)blockIdx.x * T;
   const int nl = (int)min((int64_t)T, lanes - lane0);
-  const int64_t first = lane0 * K;
-  for (int i = threadIdx.x; i < nl * K; i += T) {
-    const int l = i / K;
-    const int at = l * KP + i - l * K;
-    s_idx[at] = idx[first + i];
-    if (seg) s_seg[at] = seg[first + i];
-  }
+  stage_chunks(s_idx, s_seg, idx, seg, lane0, nl, K, T, false);
   __syncthreads();
   if ((int)threadIdx.x >= nl) return;
   const int64_t lane = lane0 + threadIdx.x;
   const int32_t* my_idx = s_idx + threadIdx.x * KP;
   const int32_t* my_seg = s_seg + threadIdx.x * KP;
-  // the segment id after the chunk's last step: the next chunk's first in
-  // the same block row, else -1 (the row ends)
   const int64_t b = lane / M;
-  const int32_t after =
-      nb && lane % M + 1 < M ? seg[(lane + 1) * K] : -1;
+  const int32_t after = chunk_after(seg, lane, M, K, nb);
   const int64_t ncols = lanes / M * nb;
   constexpr int W = 2 * G::ROWS;
   using E = typename G::E;
@@ -192,9 +184,8 @@ k_bucket_scan_rows(const uint32_t* __restrict__ rows,
         G::set_one(acc.Z);
     }
     if (nb) {
-      const int32_t d = my_seg[t];
-      if ((t + 1 < K ? my_seg[t + 1] : after) != d && d >= 0 && d < nb)
-        jac_store<G>(bx, by, bz, b * nb + d, ncols, acc);
+      const int32_t d = run_end(my_seg, t, K, after, nb);
+      if (d >= 0) jac_store<G>(bx, by, bz, b * nb + d, ncols, acc);
     }
   }
   jac_store<G>(tx, ty, tz, lane, lanes, acc);
@@ -414,6 +405,12 @@ int launch_scan(const void* x, const void* y, const void* seg, void* ox,
   return (int)cudaGetLastError();
 }
 
+// K5 for G2 on thread pairs (bucket_scan_g2.cu).
+int launch_scan_rows_g2(const void* rows, const void* idx, const void* seg,
+                        void* tx, void* ty, void* tz, void* bx, void* by,
+                        void* bz, void* flag, int K, int64_t lanes,
+                        int64_t M, int nb, cudaStream_t s);
+
 }  // namespace zk
 
 // rows (Nrows, 2 rows) 16-byte aligned; idx, seg (lanes / M, M K) int32,
@@ -429,8 +426,8 @@ extern "C" int zk_bucket_scan_rows(int g2, const void* rows, const void* idx,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    return zk::launch_scan_rows<zk::G2Field, 64, 5>(
-        rows, idx, seg, tx, ty, tz, bx, by, bz, flag, K, lanes, M, nb, s);
+    return zk::launch_scan_rows_g2(rows, idx, seg, tx, ty, tz, bx, by, bz,
+                                   flag, K, lanes, M, nb, s);
   return zk::launch_scan_rows<zk::G1Field, 128, 4>(
       rows, idx, seg, tx, ty, tz, bx, by, bz, flag, K, lanes, M, nb, s);
 }

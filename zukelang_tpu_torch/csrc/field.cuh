@@ -90,6 +90,151 @@ __device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a,
   for (int j = 0; j < N; ++j) r[j] = ge ? d[j] : t[j];
 }
 
+// One CIOS step's product row on t (N + 2 words, t[N + 1] taking the
+// carry): t += a bk.  The low halves of the limb products in one PTX carry
+// chain, the high halves in another: ptxas lowers each limb product to
+// four instructions (IMAD, IMAD.HI, two IADD3.X).
+template <class F>
+__device__ __forceinline__ void cios_mac(uint32_t (&t)[F::NL + 2],
+                                         const uint32_t (&a)[F::NL],
+                                         uint32_t bk) {
+  if constexpr (F::NL == 12) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %14, %26, %0;\n\t"
+        "madc.lo.cc.u32 %1, %15, %26, %1;\n\t"
+        "madc.lo.cc.u32 %2, %16, %26, %2;\n\t"
+        "madc.lo.cc.u32 %3, %17, %26, %3;\n\t"
+        "madc.lo.cc.u32 %4, %18, %26, %4;\n\t"
+        "madc.lo.cc.u32 %5, %19, %26, %5;\n\t"
+        "madc.lo.cc.u32 %6, %20, %26, %6;\n\t"
+        "madc.lo.cc.u32 %7, %21, %26, %7;\n\t"
+        "madc.lo.cc.u32 %8, %22, %26, %8;\n\t"
+        "madc.lo.cc.u32 %9, %23, %26, %9;\n\t"
+        "madc.lo.cc.u32 %10, %24, %26, %10;\n\t"
+        "madc.lo.cc.u32 %11, %25, %26, %11;\n\t"
+        "addc.cc.u32 %12, %12, 0;\n\t"
+        "addc.u32 %13, %13, 0;\n\t"
+        "mad.hi.cc.u32 %1, %14, %26, %1;\n\t"
+        "madc.hi.cc.u32 %2, %15, %26, %2;\n\t"
+        "madc.hi.cc.u32 %3, %16, %26, %3;\n\t"
+        "madc.hi.cc.u32 %4, %17, %26, %4;\n\t"
+        "madc.hi.cc.u32 %5, %18, %26, %5;\n\t"
+        "madc.hi.cc.u32 %6, %19, %26, %6;\n\t"
+        "madc.hi.cc.u32 %7, %20, %26, %7;\n\t"
+        "madc.hi.cc.u32 %8, %21, %26, %8;\n\t"
+        "madc.hi.cc.u32 %9, %22, %26, %9;\n\t"
+        "madc.hi.cc.u32 %10, %23, %26, %10;\n\t"
+        "madc.hi.cc.u32 %11, %24, %26, %11;\n\t"
+        "madc.hi.cc.u32 %12, %25, %26, %12;\n\t"
+        "addc.u32 %13, %13, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]),
+          "r"(bk));
+  } else {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(a[6]), "r"(a[7]), "r"(bk));
+  }
+}
+
+// One CIOS step's reduction: with m = t[0] NPRIME, t = (t + m p) / 2^32,
+// written one word down in place (N + 1 words, t[N + 1] dead); p's limbs
+// in registers.
+template <class F>
+__device__ __forceinline__ void cios_redc(uint32_t (&t)[F::NL + 2],
+                                          const uint32_t (&p)[F::NL]) {
+  const uint32_t m = t[0] * F::NPRIME;
+  if constexpr (F::NL == 12) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %14, %15, %0;\n\t"
+        "madc.lo.cc.u32 %0, %14, %16, %1;\n\t"
+        "madc.lo.cc.u32 %1, %14, %17, %2;\n\t"
+        "madc.lo.cc.u32 %2, %14, %18, %3;\n\t"
+        "madc.lo.cc.u32 %3, %14, %19, %4;\n\t"
+        "madc.lo.cc.u32 %4, %14, %20, %5;\n\t"
+        "madc.lo.cc.u32 %5, %14, %21, %6;\n\t"
+        "madc.lo.cc.u32 %6, %14, %22, %7;\n\t"
+        "madc.lo.cc.u32 %7, %14, %23, %8;\n\t"
+        "madc.lo.cc.u32 %8, %14, %24, %9;\n\t"
+        "madc.lo.cc.u32 %9, %14, %25, %10;\n\t"
+        "madc.lo.cc.u32 %10, %14, %26, %11;\n\t"
+        "addc.cc.u32 %11, %12, 0;\n\t"
+        "addc.u32 %12, %13, 0;\n\t"
+        "mad.hi.cc.u32 %0, %14, %15, %0;\n\t"
+        "madc.hi.cc.u32 %1, %14, %16, %1;\n\t"
+        "madc.hi.cc.u32 %2, %14, %17, %2;\n\t"
+        "madc.hi.cc.u32 %3, %14, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %14, %19, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %20, %5;\n\t"
+        "madc.hi.cc.u32 %6, %14, %21, %6;\n\t"
+        "madc.hi.cc.u32 %7, %14, %22, %7;\n\t"
+        "madc.hi.cc.u32 %8, %14, %23, %8;\n\t"
+        "madc.hi.cc.u32 %9, %14, %24, %9;\n\t"
+        "madc.hi.cc.u32 %10, %14, %25, %10;\n\t"
+        "madc.hi.cc.u32 %11, %14, %26, %11;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]),
+          "r"(p[5]), "r"(p[6]), "r"(p[7]), "r"(p[8]), "r"(p[9]), "r"(p[10]),
+          "r"(p[11]));
+  } else {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %10, %11, %0;\n\t"
+        "madc.lo.cc.u32 %0, %10, %12, %1;\n\t"
+        "madc.lo.cc.u32 %1, %10, %13, %2;\n\t"
+        "madc.lo.cc.u32 %2, %10, %14, %3;\n\t"
+        "madc.lo.cc.u32 %3, %10, %15, %4;\n\t"
+        "madc.lo.cc.u32 %4, %10, %16, %5;\n\t"
+        "madc.lo.cc.u32 %5, %10, %17, %6;\n\t"
+        "madc.lo.cc.u32 %6, %10, %18, %7;\n\t"
+        "addc.cc.u32 %7, %8, 0;\n\t"
+        "addc.u32 %8, %9, 0;\n\t"
+        "mad.hi.cc.u32 %0, %10, %11, %0;\n\t"
+        "madc.hi.cc.u32 %1, %10, %12, %1;\n\t"
+        "madc.hi.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %14, %3;\n\t"
+        "madc.hi.cc.u32 %4, %10, %15, %4;\n\t"
+        "madc.hi.cc.u32 %5, %10, %16, %5;\n\t"
+        "madc.hi.cc.u32 %6, %10, %17, %6;\n\t"
+        "madc.hi.cc.u32 %7, %10, %18, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]),
+          "r"(p[5]), "r"(p[6]), "r"(p[7]));
+  }
+}
+
 // r = a + b mod p (either domain).
 template <class F>
 __device__ __forceinline__ void fp_add(uint32_t* r, const uint32_t* a,

@@ -35,8 +35,9 @@ from ..params import FQ, FR, FieldSpec
 from . import field as F
 
 KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
-           "digit_sort", "bucket_scan_rows", "jac_scan", "weighted_chunk_sums",
-           "bucket_scan", "mont_mul_looped", "ntt", "signed_digits")
+           "digit_sort", "bucket_scan_rows", "bucket_scan_rows_g2",
+           "jac_scan", "weighted_chunk_sums", "bucket_scan", "mont_mul_looped",
+           "ntt", "signed_digits")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -65,6 +66,7 @@ _ARGTYPES = {
     "zk_bucket_scan": [_I32] + [_P] * 7 + [_I32, _I32, _I64, _I32, _P],
     "zk_mont_mul_looped": [_I32, _P, _P, _P, _I64, _P],
     "zk_fq_mul_chain": [_P, _P, _P, _I32, _P],
+    "zk_fq2_pair_products": [_P, _P, _P, _P, _I64, _P],
     # the NTT kernel (ops/ntt.py): a pointer to its NttArgs, s0, ns,
     # first, last
     "zk_ntt_pass": [_P, _I32, _I32, _I32, _I32, _P],
@@ -986,13 +988,16 @@ def digit_sort(keys: torch.Tensor, nkeys: int) -> Tuple[torch.Tensor, torch.Tens
 # K5  bucket_scan_rows
 # Replaces bucket_scan_rows (pallas_kernels.py:1296; kernel
 # _seg_scan_kernel2 :1192, call _seg_scan2_call :1253).  One thread per
-# chunk of K positions; at each step the thread gathers its point's row
-# from the affine row table itself (16-byte loads; the block's indices and
-# segment ids staged in shared memory first) and runs the segmented mixed
-# add with the accumulator and the collision flag in registers, in place
-# of the Pallas grid's sequential t axis.  It writes only what the MSM
-# reads: each chunk's final accumulator and, with nb, each bucket's
-# in-chunk tail.  Bound: 11 field products per continuing step.
+# chunk of K positions on G1, a pair of adjacent threads on G2 (one Fq
+# component of every coordinate each, csrc/bucket_scan_g2.cu; its launches
+# count as `bucket_scan_rows_g2`); at each step the lane gathers its
+# point's row from the affine row table itself (16-byte loads; the
+# block's indices and segment ids staged in shared memory first) and runs
+# the segmented mixed add with the accumulator and the collision flag in
+# registers, in place of the Pallas grid's sequential t axis.  It writes
+# only what the MSM reads: each chunk's final accumulator and, with nb,
+# each bucket's in-chunk tail.  Bound: 11 field products per continuing
+# step.
 # ---------------------------------------------------------------------------
 
 def _row_coord(v: torch.Tensor, group: str) -> torch.Tensor:
@@ -1103,7 +1108,8 @@ def bucket_scan_rows(rows, idx, seg, K: int, group: str, nb: int = None):
                if nb is not None else [None] * 3)
     flag = torch.empty(lanes, dtype=torch.int32, device=dev)
     if lanes:
-        _launch("bucket_scan_rows", "zk_bucket_scan_rows", dev,
+        _launch("bucket_scan_rows_g2" if group == "g2" else
+                "bucket_scan_rows", "zk_bucket_scan_rows", dev,
                 _I32(int(group == "g2")), build.ptr(rows), build.ptr(idx),
                 build.ptr(seg) if seg is not None else _P(None),
                 *(build.ptr(x) for x in tails),
@@ -1113,6 +1119,26 @@ def bucket_scan_rows(rows, idx, seg, K: int, group: str, nb: int = None):
                 _I32(nb or 0))
     return (tuple(tails), tuple(buckets) if nb is not None else None,
             flag != 0)
+
+
+def fq2_pair_products(a: torch.Tensor, b: torch.Tensor):
+    """(a b, a^2) of Fq2 coordinates ((2, 12, N), Montgomery form): on the
+    card the products of K5's G2 kernel as its thread pairs form them
+    (csrc/bucket_scan_g2.cu), the check of its arithmetic on chosen
+    values; counted as a `bucket_scan_rows_g2` launch.  On no path."""
+    if (a.shape != b.shape or a.dim() != 3 or a.shape[:2] != (2, FQ.nl)
+            or a.shape[2] < 1):
+        raise ValueError(f"fq2_pair_products: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return F.fq2_mul(a, b), F.fq2_sqr(a)
+    a, b = a.contiguous(), b.contiguous()
+    _cuda_args(a, b)
+    prod, sq = torch.empty_like(a), torch.empty_like(a)
+    _launch("bucket_scan_rows_g2", "zk_fq2_pair_products", a.device,
+            build.ptr(a), build.ptr(b), build.ptr(prod), build.ptr(sq),
+            _I64(a.shape[2]))
+    return prod, sq
 
 
 # ---------------------------------------------------------------------------
