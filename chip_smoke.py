@@ -143,9 +143,17 @@ Phases (any failure raises and the script exits non-zero):
      lanes) and its doubling.  (a) and (b) must launch K1, the NTT kernel
      and K2's add and doubling, (d) those and K7; none of them K8 or the
      looped probe.
+ 12. the fused witness reduction at the Sapling Spend circuit's shape
+     (`zkbench/circuits_sapling.py` under the groth16-sapling-spend
+     configuration: 98,777 ragged rows of 0 to 255 terms in a 2^17
+     domain, one witness of the pool): from zeroed counts one
+     `run_witness_reduction` must launch the NTT kernel 6 times and
+     nothing else, each side on the card must take nnz x 36 B + (G + 1)
+     x 4 B, and a, b and h must equal `witness_reduction_plain`'s on the
+     same sides and witness, word for word.
 Phases 4, 5, 8, 9 (b) and 11 (a), (b) also print the launches of one
 prove.
-Each path of phases 4 to 11 starts from zeroed counts; every kernel of
+Each path of phases 4 to 12 starts from zeroed counts; every kernel of
 the path must have launched in it; K3 once a small fixed-base batch of
 both keygens (once in all for Groth16) and once a chunked phase 1; K2's
 add at most MAX_ADD_LAUNCHES times a prove; in phases 4, 5 and 8 K9
@@ -276,6 +284,11 @@ SHARDED_MSM_KERNELS = SHARDED_KERNELS + ("jac_scan",)
 # on four runs of a quarter as many lanes or chunks
 SAMPLE_ABOVE_LANES = 1 << 15
 SAMPLE_SCAN_CHUNKS = 32
+# phase 12: the Sapling Spend configuration, the seed of its circuit and
+# witness, and the NTT kernel's launches of one witness reduction at 2^17
+SAPLING_CONFIG = "zkbench/configs/groth16-sapling-spend.json"
+SAPLING_SEED = 2 ** 31 + 21
+SAPLING_REDUCTION_LAUNCHES = 6
 
 # The least time the card could take: bytes over the HBM rate, and limb
 # products over the integer rate.  NVIDIA's data sheet gives no 32-bit
@@ -725,7 +738,7 @@ def _witness_reduction_work(fc, args):
     twiddles and coset powers of both directions read once, a, b and h
     written once."""
     n = 1 << fc.logn
-    gate = sum(s.idx.size for s in (fc.l, fc.r, fc.lhs))
+    gate = fc.nnz
     products = gate + 7 * (n // 2) * fc.logn + 10 * n
     return lambda got: (_nbytes(args, got) + 4 * 8 * (n + 2 * n),
                         products * PRODUCTS["Fr"])
@@ -1233,9 +1246,7 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
     rows_of = {group: idx.shape[0] for (_r, idx, _s, _k, group, _nb), _kw
                in scans}
     (fc, wm), _kw = wreds[0]
-    args = (*te._side_tensors(fc.l, wm.device),
-            *te._side_tensors(fc.r, wm.device),
-            *te._side_tensors(fc.lhs, wm.device), wm)
+    args = (*(te.side_tensors(s, wm.device) for s in fc.sides), wm)
     log(f"NTT kernel: the fused witness reduction at the prove's inputs "
         f"(2^{fc.logn}, {fc.n_gates} gates; a, b and h)")
     record("ntt", lambda: te.run_witness_reduction(fc, wm),
@@ -2608,6 +2619,55 @@ def sharded_paths(dev):
     return paths
 
 
+def sapling_reduction_path(dev):
+    """Phase 12: the fused witness reduction over the Sapling Spend
+    circuit's ragged rows, from zeroed counts, against its plain version
+    on the same sides and witness."""
+    import numpy as np
+    from zkbench import circuits_sapling
+    from zukelang_tpu_torch.core import flat
+    from zukelang_tpu_torch.engine import torch_engine as te
+    from zukelang_tpu_torch.ops import kernels as K
+
+    t_phase = time.time()
+    with open(SAPLING_CONFIG) as f:
+        conf = json.load(f)
+    inst = circuits_sapling.build(conf, {"witnesses": 1}, SAPLING_SEED)
+    fc = flat.from_arrays(inst.n_vars, inst.logn, *inst.gates)
+    wm = flat.pack_witness_values(inst.witnesses[0], dev)
+    widths = np.concatenate([np.diff(s.offsets) for s in fc.sides])
+    log(f"Sapling Spend shape: {fc.n_gates} gates in 2^{fc.logn}, "
+        f"{inst.n_vars} columns, nnz {[s.nnz for s in fc.sides]}, rows of "
+        f"{int(widths.min())}-{int(widths.max())} terms, "
+        f"{int((widths > 3).sum())} rows of more than 3 "
+        f"(built in {time.time() - t_phase:.1f} s)")
+    _sync()
+    K.reset_counts()
+    te.run_witness_reduction(fc, wm)
+    _sync()
+    counts = dict(K.LAUNCHES)
+    want = {k: SAPLING_REDUCTION_LAUNCHES if k == "ntt" else 0
+            for k in K.KERNELS}
+    log(f"launches of one witness reduction: {counts}")
+    if counts != want:
+        raise AssertionError(f"sapling: the witness reduction launched "
+                             f"{counts}, expected {want}")
+    args = (*(te.side_tensors(s, dev) for s in fc.sides), wm)
+    for s, t in zip(fc.sides, args):
+        got = _nbytes(*t)
+        if got != s.nnz * 36 + (fc.n_gates + 1) * 4:
+            raise AssertionError(f"sapling: a side of {s.nnz} terms takes "
+                                 f"{got} B on the card")
+    log(f"NTT kernel: the fused witness reduction over the Sapling rows "
+        f"(2^{fc.logn}, {fc.n_gates} gates; a, b and h)")
+    record("ntt", lambda: te.run_witness_reduction(fc, wm),
+           lambda: te.witness_reduction_plain(fc.logn)(*args),
+           _witness_reduction_work(fc, args), plain_reps=0)
+    _sync()
+    log(f"phase wall {time.time() - t_phase:.1f} s")
+    return dict(K.LAUNCHES), None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2670,6 +2730,8 @@ def main() -> int:
     sharded = sharded_paths(dev)
     paths.update(sharded)
     provers += [p for p, (_c, per) in sharded.items() if per is not None]
+    log("phase 12: the witness reduction at the Sapling Spend shape")
+    paths["sapling_reduction_2^17"] = sapling_reduction_path(dev)
 
     kernels = []
     for name in K.KERNELS:

@@ -167,7 +167,7 @@ def test_one_is_the_first_var_and_flatten_takes_both_packages_gates():
     a, b = flat.flatten(tc.gates), flat.flatten(jc.gates)
     assert plain(a.vars_sorted) == plain(b.vars_sorted)
     for side in ("l", "r", "lhs"):
-        for f in ("idx", "coef", "t_var", "t_gate", "t_coef"):
+        for f in ("offsets", "cols", "coef", "t_var", "t_gate", "t_coef"):
             assert (getattr(getattr(a, side), f)
                     == getattr(getattr(b, side), f)).all()
     assert [g.key() for g in circuit.sort_gates(tc.gates + tc.gates)] == [

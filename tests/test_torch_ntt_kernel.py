@@ -128,11 +128,10 @@ def test_fused_reduction_plain_matches_jax(jref, circuit):
     word-equal to `jax_engine.run_witness_reduction`."""
     fj, wj, ft, wt = _cubic() if circuit == "cubic" else _synthetic(8, 3)
     if circuit == "cubic":
-        assert max(s.idx.shape[1] for s in (ft.l, ft.r, ft.lhs)) > 1
+        assert max(s.widest for s in ft.sides) > 1
         assert ft.n_gates < 1 << ft.logn
     want = jref.je.run_witness_reduction(fj, jref.jnp.asarray(wj))
-    args = (*te._side_tensors(ft.l, "cpu"), *te._side_tensors(ft.r, "cpu"),
-            *te._side_tensors(ft.lhs, "cpu"), wt)
+    args = (*(te.side_tensors(s, "cpu") for s in ft.sides), wt)
     for log_tile in (None, 2, 3):
         got = te.witness_reduction_plain(ft.logn, log_tile)(*args)
         for g, w in zip(got, want):
@@ -143,10 +142,11 @@ def test_fused_reduction_plain_matches_jax(jref, circuit):
 
 def test_side_tensors_are_made_once_per_device():
     _fj, _wj, ft, _wt = _synthetic(4, 1)
-    first = te._side_tensors(ft.l, torch.device("cpu"))
-    assert te._side_tensors(ft.l, "cpu") is first
-    assert first[0].dtype == torch.int32
-    assert np.array_equal(first[0].numpy(), ft.l.idx)
+    first = te.side_tensors(ft.l, torch.device("cpu"))
+    assert te.side_tensors(ft.l, "cpu") is first
+    assert (first[0].dtype, first[1].dtype) == (torch.int32, torch.int32)
+    assert np.array_equal(first[0].numpy(), ft.l.offsets)
+    assert np.array_equal(first[1].numpy(), ft.l.cols)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +184,40 @@ def test_fused_reduction_kernel_equals_plain(dev):
     got = te.run_witness_reduction(inst.fc, wm)
     launched = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS}
     assert launched == {k: 6 if k == "ntt" else 0 for k in K.KERNELS}
-    args = (*te._side_tensors(inst.fc.l, dev),
-            *te._side_tensors(inst.fc.r, dev),
-            *te._side_tensors(inst.fc.lhs, dev), wm)
+    args = (*(te.side_tensors(s, dev) for s in inst.fc.sides), wm)
     want = te.witness_reduction_plain(12)(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_fused_reduction_ragged_kernel_equals_plain(dev):
+    """Ragged rows of 0 to 255 terms (mostly 1-3, as in the Sapling
+    Spend circuit) at 2^12, six launches, word-equal to the plain
+    version; the sides on the card take nnz x 36 B + (G + 1) x 4 B."""
+    from zukelang_tpu_torch.core import flat
+    rng = random.Random(8)
+    G, V, R = 3000, 5000, params.R
+    widths = (1,) * 20 + (3,) * 10 + (2, 0, 34, 96, 255)
+    sides = []
+    for s in range(3):
+        off, cols, coefs = [0], [], []
+        for g in range(G):
+            k = widths[(7 * g + s) % len(widths)]
+            cols += rng.sample(range(V), k)
+            coefs += [rng.choice((1, R - 1, rng.randrange(R)))
+                      for _ in range(k)]
+            off.append(len(cols))
+        sides.append((off, cols, coefs))
+    fc = flat.from_arrays(V, 12, *sides)
+    wm = flat.pack_witness_values([1] + [rng.randrange(R)
+                                         for _ in range(V - 1)], dev)
+    before = dict(K.LAUNCHES)
+    got = te.run_witness_reduction(fc, wm)
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS}
+    assert launched == {k: 6 if k == "ntt" else 0 for k in K.KERNELS}
+    args = [te.side_tensors(s, dev) for s in fc.sides]
+    for s, t in zip(fc.sides, args):
+        assert sum(x.numel() * x.element_size() for x in t) == (
+            s.nnz * 36 + (G + 1) * 4)
+    want = te.witness_reduction_plain(12)(*args, wm)
     assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -69,15 +69,21 @@ def inputs():
 
 
 def _port(inp):
-    return dict(idx=inp["idx"],
-                coef=_np(F.from_jax(inp["coef_j"], axis=0)),
+    """The inputs in the port's layout: the (G, K) rows, all K terms
+    live, as ragged rows of K terms each."""
+    G, K = inp["idx"].shape
+    return dict(offsets=np.arange(G + 1, dtype=np.int64) * K,
+                cols=inp["idx"].reshape(-1),
+                coef=_np(F.from_jax(inp["coef_j"], axis=0)).reshape(
+                    FR.nl, G * K),
                 w=_np(F.from_jax(inp["w_j"])),
                 x=_np(F.pack_mont(inp["x"], FR)))
 
 
 def _cases(inp, D):
     p = _port(inp)
-    cases = [("gate", "gate_eval", dict(idx=p["idx"], coef=p["coef"],
+    cases = [("gate", "gate_eval", dict(offsets=p["offsets"],
+                                        cols=p["cols"], coef=p["coef"],
                                         w=p["w"]))]
     for name, (l1, l2) in SPLITS.items():
         cases.append((f"ntt_{name}", "ntt", dict(
@@ -175,12 +181,14 @@ def test_make_mesh_refuses_nccl_without_cuda():
 
 
 def test_a_rank_that_raises_makes_spawn_raise():
-    idx = np.zeros((3, 1), dtype=np.int32)
-    coef = np.zeros((FR.nl, 3, 1), dtype=np.int32)
+    offsets = np.arange(4, dtype=np.int64)
+    cols = np.zeros(3, dtype=np.int32)
+    coef = np.zeros((FR.nl, 3), dtype=np.int32)
     w = np.zeros((FR.nl, 2), dtype=np.int32)
     with pytest.raises(RuntimeError, match="do not split over 2 ranks"):
         launch.spawn(TARGET, 2, "cpu",
-                     [("gate", "gate_eval", dict(idx=idx, coef=coef, w=w))])
+                     [("gate", "gate_eval", dict(offsets=offsets, cols=cols,
+                                                 coef=coef, w=w))])
 
 
 def test_sharded_groth16_prove_one_rank(world1):
@@ -196,9 +204,9 @@ def test_sharded_gate_eval_equals_jax_and_plain(inputs, worlds, D):
     got = _gathered(worlds[D].result(), "gate.block", 1)
     assert np.array_equal(got, worlds["jax"].result()["gate", D])
     p = _port(inputs)
-    plain = ntt._gate_eval_plain(torch.from_numpy(p["idx"]),
-                                 torch.from_numpy(p["coef"]),
-                                 torch.from_numpy(p["w"]))
+    plain = ntt.gate_sums(tuple(torch.from_numpy(p[k])
+                                for k in ("offsets", "cols", "coef")),
+                          torch.from_numpy(p["w"]))
     assert np.array_equal(got, _np(plain))
 
 

@@ -21,7 +21,8 @@ from zukelang_tpu.protocols.groth16 import Groth16
 from zukelang_tpu.protocols.pinocchio import Pinocchio
 from zukelang_tpu.rng import Gen, InjectedRng
 from zukelang_tpu_torch import vectors
-from zukelang_tpu_torch.ops import field as F
+
+from jax_flat import assert_side_matches_jax
 
 SCALARS = {
     "groth16_keygen": [i + 1000 for i in range(5)],
@@ -95,12 +96,8 @@ def test_vectors_reader_gives_the_jax_flat_circuit():
     assert vec.fc.logn == jfc.logn and vec.fc.n_gates == jfc.n_gates
     assert len(vec.fc.vars_sorted) == len(jfc.vars_sorted)
     for name in ("l", "r", "lhs"):
-        sj, st = getattr(jfc, name), getattr(vec.fc, name)
-        for field in ("idx", "t_var", "t_gate"):
-            assert np.array_equal(getattr(sj, field), getattr(st, field))
-        assert np.array_equal(F.to_jax(F._as_tensor(st.coef), axis=0),
-                              sj.coef)
-        assert np.array_equal(F.to_jax(F._as_tensor(st.t_coef)), sj.t_coef)
+        assert_side_matches_jax(getattr(jfc, name), getattr(vec.fc, name),
+                                len(jfc.vars_sorted))
     assert vec.witness == [sol[v].n for v in jfc.vars_sorted]
     assert set(vec.proofs) == set(vectors.PROTOCOLS)
 

@@ -43,8 +43,10 @@
 // Fused steps (`pre` on the first pass's load, at the source index src =
 // bitrev(i) with brev_in, else i; `post` on the last pass's store, at the
 // output index i):
-//   pre  = kLoad: in[b][src];  kGate: sum_k w[idx[src, k]] coef[src, k]
-//          of side b (zero from n_gates up);  kQuot: (in[0] in[1] - in[2])
+//   pre  = kLoad: in[b][src];  kGate: sum_t w[idx[t]] coef[t] over the
+//          terms t = off[src] .. off[src + 1] - 1 of side b, each row its
+//          own count (a ragged row walks only its terms; zero from n_gates
+//          up);  kQuot: (in[0] in[1] - in[2])
 //          zinv at src, the three vectors of `in` giving one output;
 //          then times pre_tab[src] where given (the coset powers g^i);
 //   post = times post_c (1/N) where post_const, then times post_tab[i]
@@ -65,10 +67,11 @@ struct NttArgs {
   const uint32_t* tw;        // (8, N / 2): w^0 .. w^(N/2 - 1)
   const uint32_t* pre_tab;   // (8, N) or null
   const uint32_t* post_tab;  // (8, N) or null
-  const int32_t* gate_idx[3];    // kGate: (G, K_b) witness columns
-  const uint32_t* gate_coef[3];  // kGate: (8, G, K_b)
+  const int32_t* gate_off[3];    // kGate: (G + 1) row offsets of side b
+  const int32_t* gate_idx[3];    // kGate: (nnz_b) witness column a term
+  const uint32_t* gate_coef[3];  // kGate: (8, nnz_b)
   const uint32_t* w;             // kGate: (8, w_cols) witness
-  int64_t gate_k[3];
+  int64_t gate_nnz[3];
   int64_t n_gates;
   int64_t w_cols;
   uint32_t zinv[8];
@@ -107,12 +110,11 @@ __device__ void ntt_prologue(uint32_t* v, const NttArgs& a, int b,
 #pragma unroll
     for (int l = 0; l < 8; ++l) v[l] = 0;
     if (src < a.n_gates) {
-      const int64_t K = a.gate_k[b];
-      const int64_t gk = a.n_gates * K;
-      for (int64_t k = 0; k < K; ++k) {
+      const int64_t end = a.gate_off[b][src + 1];
+      for (int64_t t = a.gate_off[b][src]; t < end; ++t) {
         uint32_t x[8], c[8];
-        load8(x, a.w, a.w_cols, a.gate_idx[b][src * K + k]);
-        load8(c, a.gate_coef[b], gk, src * K + k);
+        load8(x, a.w, a.w_cols, a.gate_idx[b][t]);
+        load8(c, a.gate_coef[b], a.gate_nnz[b], t);
         fr_mul_call(x, x, c);
         fp_add<Fr>(v, v, x);
       }

@@ -8,9 +8,10 @@ and that of the device protocols (`_gate_eval` :167,
 `_lagrange_at` :239, `_segment_field_sum` and the transpose matvec
 :258-288).
 
-  * witness reduction (prove side): per-gate evaluation as a dense padded
-    matvec -> iNTT -> coset pointwise ops -> h coefficients, in three
-    transforms of the NTT kernel with the pointwise steps fused;
+  * witness reduction (prove side): per-gate evaluation over each gate's
+    own terms (ragged rows) -> iNTT -> coset pointwise ops -> h
+    coefficients, in three transforms of the NTT kernel with the
+    pointwise steps fused;
   * evaluation at tau (keygen side): Lagrange values L_g(tau) over the
     radix-2 domain, then a var-sorted transpose matvec via a segmented
     log-depth scan;
@@ -71,9 +72,8 @@ def witness_reduction_plain(logn: int, log_tile: Optional[int] = None):
     at tiles of 2^log_tile points; None: one pass a transform)."""
     step = functools.partial(ntt_mod.transform_plain, log_tile=log_tile)
 
-    def run(l_idx, l_coef, r_idx, r_coef, o_idx, o_coef, w):
-        return _reduce(step, logn, ((l_idx, l_coef), (r_idx, r_coef),
-                                    (o_idx, o_coef)), w)
+    def run(l, r, lhs, w):
+        return _reduce(step, logn, (l, r, lhs), w)
 
     return run
 
@@ -82,24 +82,25 @@ def witness_reduction_fn(logn: int):
     """The witness-reduction pipeline for one domain size: gate evaluation
     -> iNTT -> coset quotient -> h coefficients.  Returns (a, b, h).  On
     the card it is six launches of the NTT kernel at 2^12 to 2^22 points
-    (three at or below 2^11); on the CPU its plain version.  idx: (G, K)
-    int32 witness columns; coef: (nl, G, K) Montgomery; w: (nl, V+1)."""
+    (three at or below 2^11); on the CPU its plain version.  l, r, lhs:
+    a side's ragged rows as `side_tensors` gives them, (offsets (G+1),
+    cols (nnz), coef (nl, nnz) Montgomery); w: (nl, V+1)."""
 
-    def run(l_idx, l_coef, r_idx, r_coef, o_idx, o_coef, w):
-        return _reduce(ntt_mod.transform, logn, ((l_idx, l_coef),
-                                                 (r_idx, r_coef),
-                                                 (o_idx, o_coef)), w)
+    def run(l, r, lhs, w):
+        return _reduce(ntt_mod.transform, logn, (l, r, lhs), w)
 
     return run
 
 
-def _side_tensors(side: flat_mod.FlatSide, device):
-    """(idx, coef) of a side on `device`, kept on the side after the first
-    call so that a prove copies nothing to the card."""
+def side_tensors(side: flat_mod.FlatSide, device):
+    """(offsets, cols, coef) of a side on `device` as int32 tensors, kept
+    on the side after the first call so that a prove copies nothing to the
+    card: nnz x 36 B and (G + 1) x 4 B."""
     key = str(device)
     if key not in side.device_copies:
         side.device_copies[key] = (
-            torch.from_numpy(side.idx.astype(np.int32)).to(device),
+            torch.from_numpy(side.offsets.astype(np.int32)).to(device),
+            torch.from_numpy(side.cols.astype(np.int32)).to(device),
             F._as_tensor(side.coef, device))
     return side.device_copies[key]
 
@@ -109,9 +110,8 @@ def run_witness_reduction(fc: flat_mod.FlatCircuit, witness_mont: torch.Tensor
     """(a, b, h) Montgomery coefficient tensors for the witness, on the
     witness's device."""
     dev = witness_mont.device
-    args = (*_side_tensors(fc.l, dev), *_side_tensors(fc.r, dev),
-            *_side_tensors(fc.lhs, dev))
-    return witness_reduction_fn(fc.logn)(*args, witness_mont)
+    return witness_reduction_fn(fc.logn)(
+        *(side_tensors(s, dev) for s in fc.sides), witness_mont)
 
 
 def _lagrange_at(logn: int, x: int, device=None) -> torch.Tensor:
@@ -301,7 +301,7 @@ class TorchEngine(Engine):
             dict(zip(fc.vars_sorted,
                      self._host(UNPACK, _unpack_fr,
                                 transpose_matvec(side, lag, nv))))
-            for side in (fc.l, fc.r, fc.lhs))
+            for side in fc.sides)
 
     def qap_eval(self, qap, sol):
         # p is not materialised on the device path (`JaxEngine.qap_eval`)

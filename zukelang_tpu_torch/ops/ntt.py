@@ -114,17 +114,26 @@ def _mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return kernels.mont_mul_plain(a, b.expand(a.shape).contiguous(), FR)
 
 
-def _gate_eval_plain(idx: torch.Tensor, coef: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
-    """Dense padded matvec: (G, K) idx + (nl, G, K) coef + (nl, V+1)
-    witness -> (nl, G) evaluations (`_gate_eval` of the JAX engine)."""
-    nl, G, K = coef.shape
-    vals = w[:, idx.reshape(-1).long()]
-    prod = kernels.mont_mul_plain(vals, coef.reshape(nl, G * K),
-                                  FR).reshape(nl, G, K)
-    acc = prod[:, :, 0]
-    for k in range(1, K):
-        acc = F.add(acc, prod[:, :, k], FR)
+def gate_sums(side, w: torch.Tensor, rows: torch.Tensor = None,
+              mul=None) -> torch.Tensor:
+    """Ragged rows (offsets (G+1), cols (nnz), coef (nl, nnz): int32)
+    + (nl, V+1) witness -> (nl, len(rows)) row sums, each row's terms
+    multiplied (`mul`, default the plain Fr product) and added in term
+    order from zero (`_gate_eval` of the JAX engine, which adds zeros for
+    its padding); rows None: every row."""
+    off, cols, coef = side
+    if rows is None:
+        rows = torch.arange(off.shape[0] - 1, device=off.device)
+    mul = mul or (lambda a, b: kernels.mont_mul_plain(a, b, FR))
+    off = off.long()
+    start, count = off[rows], off[rows + 1] - off[rows]
+    acc = torch.zeros((FR.nl, rows.shape[0]), dtype=torch.int32,
+                      device=w.device)
+    for k in range(int(count.max()) if rows.numel() else 0):
+        live = torch.nonzero(count > k).reshape(-1)
+        t = start[live] + k
+        term = mul(w[:, cols[t].long()], coef[:, t])
+        acc[:, live] = F.add(acc[:, live], term, FR)
     return acc
 
 
@@ -185,8 +194,8 @@ def transform_plain(x: Optional[torch.Tensor], logn: int, *, inverse: bool,
         sides, w = gate
         dev = w.device
         v = torch.stack([torch.nn.functional.pad(
-            _gate_eval_plain(idx, coef, w), (0, n - idx.shape[0]))
-            for idx, coef in sides])
+            gate_sums(side, w), (0, n - side[0].shape[0] + 1))
+            for side in sides])
     elif pre == PRE_QUOT:
         dev = x.device
         v = _mul(F.sub(_mul(x[0], x[1]), x[2], FR),
@@ -219,8 +228,9 @@ class _NttArgs(ctypes.Structure):
         ("in_", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("tw", ctypes.c_void_p), ("pre_tab", ctypes.c_void_p),
         ("post_tab", ctypes.c_void_p),
-        ("gate_idx", ctypes.c_void_p * 3), ("gate_coef", ctypes.c_void_p * 3),
-        ("w", ctypes.c_void_p), ("gate_k", ctypes.c_int64 * 3),
+        ("gate_off", ctypes.c_void_p * 3), ("gate_idx", ctypes.c_void_p * 3),
+        ("gate_coef", ctypes.c_void_p * 3), ("w", ctypes.c_void_p),
+        ("gate_nnz", ctypes.c_int64 * 3),
         ("n_gates", ctypes.c_int64), ("w_cols", ctypes.c_int64),
         ("zinv", ctypes.c_uint32 * 8), ("post_c", ctypes.c_uint32 * 8),
         ("logn", ctypes.c_int32), ("batch", ctypes.c_int32),
@@ -243,17 +253,17 @@ def _transform_kernel(x, logn, *, inverse, dif, pre, gate, zinv, brev_in,
     if pre == PRE_GATE:
         sides, w = gate
         w = w.contiguous()
-        sides = [(i.contiguous(), c.contiguous()) for i, c in sides]
+        sides = [tuple(t.contiguous() for t in s) for s in sides]
         kernels._cuda_args(w, *(t for s in sides for t in s))
-        a.batch, a.n_gates, a.w_cols = 3, sides[0][0].shape[0], w.shape[1]
-        if a.n_gates > n or any(i.shape[0] != a.n_gates
-                                or c.shape != (FR.nl,) + tuple(i.shape)
-                                for i, c in sides):
+        a.batch, a.n_gates, a.w_cols = 3, sides[0][0].shape[0] - 1, w.shape[1]
+        if a.n_gates > n or any(
+                off.shape != (a.n_gates + 1,) or i.dim() != 1
+                or c.shape != (FR.nl,) + i.shape for off, i, c in sides):
             raise ValueError(f"ntt: gate sides of {a.n_gates} gates do not "
                              f"fit a 2^{logn} domain")
-        for b, (i, c) in enumerate(sides):
-            a.gate_idx[b], a.gate_coef[b] = i.data_ptr(), c.data_ptr()
-            a.gate_k[b] = i.shape[1]
+        for b, (off, i, c) in enumerate(sides):
+            a.gate_off[b], a.gate_idx[b] = off.data_ptr(), i.data_ptr()
+            a.gate_coef[b], a.gate_nnz[b] = c.data_ptr(), i.shape[0]
         a.w = w.data_ptr()
         dev = w.device
     else:
@@ -301,9 +311,9 @@ def transform(x: Optional[torch.Tensor], logn: int, *, inverse: bool,
     input to natural output, DIF natural input to bit-reversed output;
     inverse takes the inverse twiddles.  The first load reads the source
     index bitrev(i) with brev_in, else i: PRE_LOAD x[b], PRE_GATE side b
-    of gate = (((idx, coef) of l, r, lhs), witness) evaluated at that
-    gate (zero past the gates), PRE_QUOT (x[0] x[1] - x[2]) zinv; then
-    times g^src with coset_in.  The last store multiplies by 1/N
+    of gate = (((offsets, cols, coef) of l, r, lhs), witness) summed over
+    that gate's own terms (zero past the gates), PRE_QUOT (x[0] x[1] -
+    x[2]) zinv; then times g^src with coset_in.  The last store multiplies by 1/N
     (scale_out), then by g^-i (coset_out), and writes output index i at
     bitrev(i) with brev_out.  -> (B, nl, N); B = 3 for PRE_GATE, 1 for
     PRE_QUOT."""

@@ -363,27 +363,22 @@ def sharded_ntt_phase_times(mesh: Mesh, x: torch.Tensor, log1: int,
 # Gate-sharded witness / constraint evaluation
 # ---------------------------------------------------------------------------
 
-def _gate_eval(idx: torch.Tensor, coef: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
-    """(G, K) idx + (nl, G, K) coef + (nl, V+1) witness -> (nl, G): the
-    JAX engine's `_gate_eval`, a gather, one K1 product of the G K terms
-    and K - 1 field additions in term order."""
-    nl, G, K = coef.shape
-    vals = w[:, idx.reshape(-1).long()]
-    prod = F.mont_mul(vals, coef.reshape(nl, G * K), FR).reshape(nl, G, K)
-    acc = prod[:, :, 0]
-    for k in range(1, K):
-        acc = F.add(acc, prod[:, :, k], FR)
-    return acc
+def _gate_eval(side, w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A side's ragged rows (offsets, cols, coef) + (nl, V+1) witness ->
+    (nl, len(rows)) sums of the rows `rows`: the JAX engine's `_gate_eval`,
+    K1 products of each row's terms added in term order."""
+    return ntt_mod.gate_sums(side, w, rows,
+                             mul=lambda a, b: F.mont_mul(a, b, FR))
 
 
-def sharded_gate_eval(mesh: Mesh, idx: torch.Tensor, coef: torch.Tensor,
-                      witness: torch.Tensor) -> torch.Tensor:
+def sharded_gate_eval(mesh: Mesh, side, witness: torch.Tensor
+                      ) -> torch.Tensor:
     """Per-gate affine evaluation with the gate axis split and the witness
-    replicated: (G, K) idx, (nl, G, K) coef, (nl, V+1) witness -> this
+    replicated: a side's (offsets, cols, coef), (nl, V+1) witness -> this
     rank's (nl, G/D) block of the evaluations."""
-    sl = mesh.block(idx.shape[0])
-    return _gate_eval(idx[sl], coef[:, sl], witness)
+    sl = mesh.block(side[0].shape[0] - 1)
+    rows = torch.arange(side[0].shape[0] - 1, device=witness.device)[sl]
+    return _gate_eval(side, witness, rows)
 
 
 def sharded_prove_step(mesh: Mesh, fc_args, witness: torch.Tensor,
@@ -391,8 +386,7 @@ def sharded_prove_step(mesh: Mesh, fc_args, witness: torch.Tensor,
     """A representative sharded prove step: gate-sharded evaluation of the
     l side -> the four-step inverse NTT -> the term-sharded G1 MSM (c = 4)
     over ti1.  Returns the golden point on every rank."""
-    l_idx, l_coef = fc_args
-    ev = mesh.gather(sharded_gate_eval(mesh, l_idx, l_coef, witness), 1)
+    ev = mesh.gather(sharded_gate_eval(mesh, fc_args, witness), 1)
     n = 1 << logn
     log2 = max(1, logn // 2)
     log1 = logn - log2
@@ -499,12 +493,11 @@ def sharded_witness_reduction(mesh: Mesh, fc, witness_mont: torch.Tensor):
     nat = torch.from_numpy(_natural(log1, log2, D, mesh.rank,
                                     False).reshape(-1)).to(dev)
     evals = []
-    for side in (fc.l, fc.r, fc.lhs):
-        idx, coef = te._side_tensors(side, dev)
-        live = nat < idx.shape[0]
-        gates = nat[live]
+    for side in fc.sides:
+        rows = te.side_tensors(side, dev)
+        live = nat < side.n_gates
         ev = torch.zeros((FR.nl, nat.numel()), dtype=torch.int32, device=dev)
-        ev[:, live] = _gate_eval(idx[gates], coef[:, gates], w)
+        ev[:, live] = _gate_eval(rows, w, nat[live])
         evals.append(ev)
     x = torch.stack(evals, 1).reshape(FR.nl, 3, (1 << log2) // D, 1 << log1)
 

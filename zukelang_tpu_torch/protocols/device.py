@@ -60,7 +60,7 @@ def prove(dev, fc, witness_mont: torch.Tensor, statement: Callable, c):
               if witness_mont.device != dev else 0)
     with util.stage("zk.prove.witness_to_device", bytes=nbytes):
         w = witness_mont.to(dev)
-    with util.stage("zk.prove.reduction", n=fc.domain_size):
+    with util.stage("zk.prove.reduction", n=fc.domain_size, nnz=fc.nnz):
         red = te.run_witness_reduction(fc, w)
     # the statement's gathers and pads run inside the G1 launch; resolving
     # reads the collision flag, a host sync, so both batches launch first
@@ -117,9 +117,8 @@ def eval_at(fc, x: int, device) -> tuple:
     with util.stage("zk.keygen.lagrange"):
         lag = te._lagrange_at(fc.logn, x, device)
     nv = len(fc.vars_sorted)
-    with util.stage("zk.keygen.matvec"):
-        return tuple(te.transpose_matvec(side, lag, nv)
-                     for side in (fc.l, fc.r, fc.lhs))
+    with util.stage("zk.keygen.matvec", nnz=fc.nnz):
+        return tuple(te.transpose_matvec(side, lag, nv) for side in fc.sides)
 
 
 def powers(x: int, n: int) -> List[int]:

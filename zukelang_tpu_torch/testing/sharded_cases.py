@@ -43,9 +43,10 @@ def _t(mesh, a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
 
 
-def _gate_eval(mesh, idx, coef, w):
+def _gate_eval(mesh, offsets, cols, coef, w):
     return {"block": sharded.sharded_gate_eval(
-        mesh, _t(mesh, idx), _t(mesh, coef), _t(mesh, w))}
+        mesh, (_t(mesh, offsets), _t(mesh, cols), _t(mesh, coef)),
+        _t(mesh, w))}
 
 
 def _ntt(mesh, x, log1, log2, inverse=False):
@@ -102,7 +103,7 @@ def _prove_step(mesh, logn, seed, s, max_windows):
     inst = bench_lib.make_synthetic_r1cs(logn, seed=seed)
     ti1 = msm_mod.g_powers(s, (1 << logn) - 1, "g1", mesh.device, c=4)
     return _point(sharded.sharded_prove_step(
-        mesh, te._side_tensors(inst.fc.l, mesh.device),
+        mesh, te.side_tensors(inst.fc.l, mesh.device),
         inst.pack_witness(mesh.device), ti1, logn, max_windows))
 
 
