@@ -215,6 +215,11 @@ REPLACES = {
                  "zukelang_tpu/ops/pallas_kernels.py:986"),
     "weighted_chunk_sums": ("zukelang_tpu_torch/csrc/weighted_sums.cu",
                             "zukelang_tpu/ops/pallas_kernels.py:1455"),
+    # K7 and K6 on G2: a thread pair a lane, behind the same entry points
+    "jac_scan_g2": ("zukelang_tpu_torch/csrc/jac_scan_g2.cu",
+                    "zukelang_tpu/ops/pallas_kernels.py:986"),
+    "weighted_chunk_sums_g2": ("zukelang_tpu_torch/csrc/weighted_sums_g2.cu",
+                               "zukelang_tpu/ops/pallas_kernels.py:1455"),
     "bucket_scan": ("zukelang_tpu_torch/csrc/bucket_scan.cu",
                     "zukelang_tpu/ops/pallas_kernels.py:807"),
     "mont_mul_looped": ("zukelang_tpu_torch/csrc/mont_mul_looped.cu",
@@ -232,7 +237,8 @@ REPLACES = {
 # the kernels each path must launch
 PROVE_KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
                  "digit_sort", "bucket_scan_rows", "bucket_scan_rows_g2",
-                 "jac_scan", "weighted_chunk_sums", "ntt", "signed_digits")
+                 "jac_scan", "jac_scan_g2", "weighted_chunk_sums",
+                 "weighted_chunk_sums_g2", "ntt", "signed_digits")
 NTT_SHAPES = ((1, 3), (2, 3), (10, 3), (11, 3), (12, 3), (16, 3), (20, 1))
 MAX_WITNESS_REDUCTION_LAUNCHES = 10
 # K2 add launches a prove: a Hillis-Steele tail, a combine, the carry
@@ -595,6 +601,16 @@ def _k5_name(group: str) -> str:
     return "bucket_scan_rows_g2" if group == "g2" else "bucket_scan_rows"
 
 
+def _k7_name(group: str) -> str:
+    """The launch counter (and check rows) of K7's kernel for `group`."""
+    return "jac_scan_g2" if group == "g2" else "jac_scan"
+
+
+def _k6_name(group: str) -> str:
+    """The launch counter (and check rows) of K6's kernel for `group`."""
+    return "weighted_chunk_sums_g2" if group == "g2" else "weighted_chunk_sums"
+
+
 def _k5_work(group, rows, idx, seg, K):
     """work(got) of a K5 call: 11 coordinate products per continuing
     step with both operands finite; bytes: the row table, indices and
@@ -930,12 +946,12 @@ def kernel_checks(dev, rng: random.Random):
             torch.int32)
         for s in (None, seg):
             log(f"K7 jac_scan {group} (2^15, K = 32, seg={s is not None})")
-            record("jac_scan", lambda: K.jac_scan(P, 32, s),
+            record(_k7_name(group), lambda: K.jac_scan(P, 32, s),
                    lambda: K.jac_scan_plain(P, 32, s),
                    _jac_scan_work(group, P, 32, s), plain_reps=1)
         log(f"K6 weighted_chunk_sums {group} (2^15, K = 32, "
-            f"g = {K.wsum_group(n7 // 32, 32)})")
-        record("weighted_chunk_sums", lambda: K.weighted_chunk_sums(P, 32),
+            f"g = {K.wsum_group(n7 // 32, 32, group)})")
+        record(_k6_name(group), lambda: K.weighted_chunk_sums(P, 32),
                lambda: K.weighted_chunk_sums_plain(P, 32),
                _wsum_work(group, P, 32), plain_reps=1)
 
@@ -1016,7 +1032,8 @@ def _check_launches(path: str, counts: dict, required,
     times a prove; K9 once each of a prove's two MSM batches, and K1 not
     at all (K9 takes the scalars out of Montgomery form); K5's G2 kernel
     once a prove (its G2 MSM batch) and in keygen (its G2 fixed-base
-    batches of 128 elements or more)."""
+    batches of 128 elements or more); K7's G2 kernel in keygen (the G2
+    fixed-base table's scan)."""
     log(f"launch counts over the {path} run: {counts}")
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -1027,6 +1044,9 @@ def _check_launches(path: str, counts: dict, required,
     if keygen is not None and keygen["bucket_scan_rows_g2"] < 1:
         raise AssertionError(f"{path}: keygen's G2 fixed-base batches did not "
                              "launch K5's G2 kernel")
+    if keygen is not None and keygen["jac_scan_g2"] < 1:
+        raise AssertionError(f"{path}: keygen's G2 fixed-base table did not "
+                             "launch K7's G2 kernel")
     if keygen_madds is not None and keygen_madds <= 0:
         raise AssertionError(f"{path}: K3 did not launch in keygen")
     if small_batches is not None and keygen_madds != small_batches:
@@ -1043,6 +1063,23 @@ def _check_launches(path: str, counts: dict, required,
         raise AssertionError(f"{path}: {per_prove['signed_digits']} K9 and "
                              f"{per_prove['mont_mul']} K1 launches a prove, "
                              "expected 2 and 0")
+
+
+def _check_g2_reduction_counts(path: str, seen, counts: dict) -> None:
+    """Every K6 and K7 call of one prove (`seen`, its captured calls;
+    `counts`, its launches) counted under its group's name: G1 calls as
+    `weighted_chunk_sums` / `jac_scan`, G2 calls, at least one of each, as
+    the thread-pair kernels' `weighted_chunk_sums_g2` / `jac_scan_g2`."""
+    from zukelang_tpu_torch.ops import kernels as K
+    for fn in ("weighted_chunk_sums", "jac_scan"):
+        calls = {g: sum(K.group_of(a[0][0]) == g for a, _kw in seen[fn])
+                 for g in ("g1", "g2")}
+        want = {fn: calls["g1"], f"{fn}_g2": calls["g2"]}
+        got = {k: counts[k] for k in want}
+        log(f"{path}: {fn} calls of a prove by group {calls}, launches {got}")
+        if got != want or calls["g2"] < 1:
+            raise AssertionError(f"{path}: {fn} launches {got} for calls "
+                                 f"{calls} of a prove")
 
 
 def _prove_targets():
@@ -1141,8 +1178,11 @@ def groth16_path(dev, log_constraints: int, sample: bool = False):
             f"{path}: the witness reduction made {wr['kernel_launches']} "
             f"kernel launches and {wr['device_events']} device events, "
             f"more than {MAX_WITNESS_REDUCTION_LAUNCHES}")
-    prove_path_kernel_checks(_capture_prove(run.crs, run.inst.fc,
-                                            run.witness), path, sample)
+    before = dict(K.LAUNCHES)
+    seen = _capture_prove(run.crs, run.inst.fc, run.witness)
+    torch.cuda.synchronize()
+    _check_g2_reduction_counts(path, seen, _diff(K.LAUNCHES, before))
+    prove_path_kernel_checks(seen, path, sample)
     rec = bench_rung.rung_record(f"groth16_prove_2^{log_constraints}",
                                  log_constraints, res, time.time() - t_phase,
                                  dev)
@@ -1270,20 +1310,20 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
         sg = rest[0] if rest else kw.get("seg")
         group = K.group_of(pts[0])
         chunks = pts[0].shape[-1] // kc
-        g = K.jac_scan_group(chunks, kc)
+        g = K.jac_scan_group(chunks, kc, group)
         log(f"K7 jac_scan at the prove's inputs ({group}, {chunks} chunks of "
             f"{kc}, seg={sg is not None}, g = {g})")
         smp = (_chunk_sample(chunks, kc, rows_of[group], pts[0].device)
                if sample else None)
         if smp is None:
-            record("jac_scan", lambda: K.jac_scan(pts, kc, sg),
+            record(_k7_name(group), lambda: K.jac_scan(pts, kc, sg),
                    lambda: K.jac_scan_plain(pts, kc, sg),
                    _jac_scan_work(group, pts, kc, sg), plain_reps=0)
             continue
         _ch, cols, what = smp
         sub = tuple(x[..., cols] for x in pts)
         record_sampled(
-            "jac_scan", lambda: K.jac_scan(pts, kc, sg),
+            _k7_name(group), lambda: K.jac_scan(pts, kc, sg),
             lambda: K.jac_scan_plain(sub, kc, sg[cols] if sg is not None
                                      else None, g),
             lambda got: tuple(x[..., cols] for x in got),
@@ -1324,13 +1364,13 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
     for i, ((pts, kc), _kw) in enumerate(wsums):
         group = K.group_of(pts[0])
         chunks = pts[0].shape[-1] // kc
-        g = K.wsum_group(chunks, kc)
+        g = K.wsum_group(chunks, kc, group)
         log(f"K6 weighted_chunk_sums at the prove's inputs ({group}, level "
             f"{i % levels + 1}: {chunks} chunks of {kc}, g = {g})")
         smp = (_chunk_sample(chunks, kc, rows_of[group], pts[0].device)
                if sample else None)
         if smp is None:
-            record("weighted_chunk_sums",
+            record(_k6_name(group),
                    lambda: K.weighted_chunk_sums(pts, kc),
                    lambda: K.weighted_chunk_sums_plain(pts, kc),
                    _wsum_work(group, pts, kc), plain_reps=1)
@@ -1338,7 +1378,7 @@ def prove_path_kernel_checks(seen, path: str, sample: bool = False,
         ch, cols, what = smp
         sub = tuple(x[..., cols] for x in pts)
         record_sampled(
-            "weighted_chunk_sums", lambda: K.weighted_chunk_sums(pts, kc),
+            _k6_name(group), lambda: K.weighted_chunk_sums(pts, kc),
             lambda: K.weighted_chunk_sums_plain(sub, kc, g),
             lambda got: tuple(tuple(x[..., ch] for x in part) for part in got),
             _wsum_work(group, pts, kc), what)
@@ -1404,8 +1444,11 @@ def pinocchio_path(dev, log_constraints: int):
     nonzk_per_prove = _diff(K.LAUNCHES, after_zk)
     ok = pd.verify(run.public, run.vkey, proof)
     before = dict(K.LAUNCHES)
-    pd.prove_device(*args, Gen(b"bench-pin-count"), zk=True)
+    seen = _capture_inputs(
+        lambda: pd.prove_device(*args, Gen(b"bench-pin-count"), zk=True),
+        [(K, "weighted_chunk_sums"), (K, "jac_scan")])
     per_prove = _diff(K.LAUNCHES, before)
+    _check_g2_reduction_counts("pinocchio", seen, per_prove)
     torch.cuda.synchronize()
     counts = dict(K.LAUNCHES)
     keygen_madds = run.keygen_launches["point_madd"]
@@ -2139,16 +2182,17 @@ def _msm_call_checks():
         pts, kc = a[:2]
         seg = a[2] if len(a) > 2 else kw.get("seg")
         n = pts[0].shape[-1]
-        g = kw.get("g") or K.jac_scan_group(n // kc, kc)
-        work = _jac_scan_work(K.group_of(pts[0]), pts, kc, seg)
+        group = K.group_of(pts[0])
+        g = kw.get("g") or K.jac_scan_group(n // kc, kc, group)
+        work = _jac_scan_work(group, pts, kc, seg)
         if n // kc <= SAMPLE_SCAN_CHUNKS:
-            rec("jac_scan", lambda: fn(*a, **kw),
+            rec(_k7_name(group), lambda: fn(*a, **kw),
                 lambda: K.jac_scan_plain(pts, kc, seg, g), work)
             return
         cols, what = _lane_runs(n, kc * SAMPLE_SCAN_CHUNKS // 4,
                                 pts[0].device)
         record_sampled(
-            "jac_scan", lambda: fn(*a, **kw),
+            _k7_name(group), lambda: fn(*a, **kw),
             lambda: K.jac_scan_plain(tuple(x[..., cols] for x in pts), kc,
                                      seg[cols] if seg is not None else None,
                                      g),
@@ -2163,7 +2207,7 @@ def _msm_call_checks():
 
     def wsum(fn, a, kw):
         pts, kc = a[:2]
-        rec("weighted_chunk_sums", lambda: fn(*a, **kw),
+        rec(_k6_name(K.group_of(pts[0])), lambda: fn(*a, **kw),
             lambda: K.weighted_chunk_sums_plain(pts, kc, kw.get("g")),
             _wsum_work(K.group_of(pts[0]), pts, kc))
 

@@ -147,10 +147,17 @@ def _wsum_points(group, g, dev, Kc=32, M=70):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 def test_weighted_chunk_sums_kernel_equals_plain_every_width(dev, group, g):
+    """G2 runs on thread pairs, counted as `weighted_chunk_sums_g2`, and
+    refuses g = 32."""
     P = _wsum_points(group, g, dev)
-    before = K.LAUNCHES["weighted_chunk_sums"]
+    name = "weighted_chunk_sums_g2" if group == "g2" else "weighted_chunk_sums"
+    if g > K.max_group(group):
+        with pytest.raises(ValueError):
+            K.weighted_chunk_sums(P, 32, g)
+        return
+    before = K.LAUNCHES[name]
     got = K.weighted_chunk_sums(P, 32, g)
-    assert K.LAUNCHES["weighted_chunk_sums"] == before + 1
+    assert K.LAUNCHES[name] == before + 1
     want = K.weighted_chunk_sums_plain(P, 32, g)
     for gt, wt in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(gt, wt))
@@ -278,6 +285,111 @@ def test_point_double_n_kernel_equals_plain(dev, group):
                    zip(got5, K.point_double_n_plain(P, 5)))
         assert all(torch.equal(a, b) for a, b in
                    zip(K.point_double(P), K.point_double_plain(P)))
+
+
+def _g2_words(n, gen, dev):
+    """(2, 12, n) random canonical Fq2 words (the top limb below p's)."""
+    c = torch.randint(0, 1 << 32, (2, 12, n), generator=gen,
+                      dtype=torch.int64, device=dev).to(torch.int32)
+    c[:, 11] &= 0x0FFFFFFF
+    return c
+
+
+def _g2_prove_points(n, seed, dev):
+    """n G2 points of random words, every 9th at infinity."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    X, Y, Z = (_g2_words(n, gen, dev) for _ in range(3))
+    Z[..., ::9] = 0
+    return X, Y, Z, gen
+
+
+def _plant_equal_and_negated(P, a, b, c, d):
+    """Point b := point a (P = Q where they meet), point d := -(point c)
+    (P = -Q)."""
+    X, Y, Z = P
+    for t in (X, Y, Z):
+        t[..., b] = t[..., a]
+    X[..., d] = X[..., c]
+    Z[..., d] = Z[..., c]
+    Y[..., d] = F.fq2_neg(Y[..., c].contiguous())
+
+
+def _chunk_cols(chunks, Kc, sample, dev):
+    """Columns of the chunks held against the plain version: all, or
+    `sample` chunks at the start, the middle and the end."""
+    if sample is None:
+        return None
+    mid = chunks // 2
+    ch = torch.cat([torch.arange(s, s + sample, device=dev)
+                    for s in (0, mid, chunks - sample)])
+    return (ch[:, None] * Kc + torch.arange(Kc, device=dev)).reshape(-1), ch
+
+
+@pytest.mark.parametrize("shape", ["2^16", "2^20"])
+def test_g2_pair_kernels_equal_plain_at_prove_shapes(dev, shape):
+    """K6 and K7 on G2 (the thread-pair kernels) at the level-1 shapes of
+    a Groth16 prove's G2 MSM: 2,580 K6 chunks and 1,280 K7 chunks with
+    segments at 2^16, held whole; 16,400 and 16,384 at 2^20, held on
+    three runs of 64 chunks.  Infinities every 9th point; in every 5th K6
+    chunk lane g - 1's first add meets P = Q, in every 7th P = -Q; in
+    every 5th K7 chunk a segment opens with P, P, in every 7th with
+    P, -P.  Each call raises its `_g2` counter once and no G1 counter."""
+    Kc = 32
+    wchunks, schunks, sample = {"2^16": (2580, 1280, None),
+                                "2^20": (16400, 16384, 64)}[shape]
+    # K6
+    X, Y, Z, gen = _g2_prove_points(wchunks * Kc, 3, dev)
+    g = K.wsum_group(wchunks, Kc, "g2")
+    base = torch.arange(0, wchunks, 5, device=dev) * Kc
+    _plant_equal_and_negated((X, Y, Z), base + Kc - 1, base + Kc - 1 - g
+                             if g < Kc else base + Kc - 2,
+                             torch.arange(0, wchunks, 7, device=dev) * Kc + 3,
+                             torch.arange(0, wchunks, 7, device=dev) * Kc + 4)
+    P = (X, Y, Z)
+    before = dict(K.LAUNCHES)
+    got = K.weighted_chunk_sums(P, Kc)
+    torch.cuda.synchronize()
+    moved = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS
+             if K.LAUNCHES[k] != before[k]}
+    assert moved == {"weighted_chunk_sums_g2": 1}
+    picked = _chunk_cols(wchunks, Kc, sample, dev)
+    if picked is None:
+        want = K.weighted_chunk_sums_plain(P, Kc, g)
+    else:
+        cols, ch = picked
+        want = K.weighted_chunk_sums_plain(tuple(x[..., cols] for x in P),
+                                           Kc, g)
+        got = tuple(tuple(x[..., ch] for x in part) for part in got)
+    for gt, wt in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(gt, wt))
+    # K7, with segments
+    n = schunks * Kc
+    X, Y, Z, gen = _g2_prove_points(n, 5, dev)
+    steps = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    at5 = torch.arange(0, schunks, 5, device=dev) * Kc + 12
+    at7 = torch.arange(0, schunks, 7, device=dev) * Kc + 20
+    for a in (at5, at7):
+        steps[a], steps[a + 1], Z[..., a] = 1, 0, 1
+    _plant_equal_and_negated((X, Y, Z), at5, at5 + 1, at7, at7 + 1)
+    seg = torch.cumsum(steps, 0).to(torch.int32)
+    P = (X, Y, Z)
+    g = K.jac_scan_group(schunks, Kc, "g2")
+    before = dict(K.LAUNCHES)
+    got = K.jac_scan(P, Kc, seg)
+    torch.cuda.synchronize()
+    moved = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS
+             if K.LAUNCHES[k] != before[k]}
+    assert moved == {"jac_scan_g2": 1}
+    picked = _chunk_cols(schunks, Kc, sample, dev)
+    if picked is None:
+        want = K.jac_scan_plain(P, Kc, seg, g)
+    else:
+        cols, _ch = picked
+        want = K.jac_scan_plain(tuple(x[..., cols] for x in P), Kc,
+                                seg[cols], g)
+        got = tuple(x[..., cols] for x in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

@@ -105,25 +105,49 @@ def test_one_lane_is_the_sequential_scan(group):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# The chunks of the G2 MSM's K7 scans (its carry scans, segmented) at
+# 2^16 (Groth16) and at 2^17 (the Sapling Spend cell's domain)
+G2_SCAN_LEVELS = (1280, 40, 2560, 80)
+
+
+@pytest.mark.parametrize("chunks", G2_SCAN_LEVELS)
+def test_g2_width_at_the_level_shapes_adds_to_golden(chunks):
+    """The plain scan at the G2 width `jac_scan_group` picks for each of
+    the MSM's level shapes, with restarts, gives the golden prefix
+    sums."""
+    g = K.jac_scan_group(chunks, KC, "g2")
+    assert g & (g - 1) == 0 and g <= K.max_group("g2") and KC % g == 0
+    Gc, pack, unpack = GROUPS["g2"]
+    pts, seg = _case("g2", seed=13)
+    want = _golden(pts, seg.tolist(), Gc)
+    assert unpack(K.jac_scan_plain(pack(pts), KC, seg, g)) == want
+
+
 def test_group_width_is_a_pure_function_of_the_shapes():
     # the chunks of the provers' scans: Groth16 G1 5,120 and 160, G2 1,280
     # and 40; Pinocchio ZK G1 10,240 and 320, G2 2,560 and 80; the window
     # program's 8,192 tails
     chunks = (5120, 160, 1280, 40, 10240, 320, 2560, 80, 256)
-    assert [K.jac_scan_group(c, 32) for c in chunks] == [
+    assert [K.jac_scan_group(c, 32, "g1") for c in chunks] == [
         8, 32, 16, 32, 8, 32, 8, 32, 32]
-    assert K.jac_scan_group(129, 64) == 32
-    for chunks in (1, 3, 100, 1024, 5120, 100000):
-        for k in (1, 2, 8, 32, 64, 96):
-            g = K.jac_scan_group(chunks, k)
-            assert g == K.jac_scan_group(chunks, k)
-            assert g & (g - 1) == 0 and g <= 32 and k % g == 0
+    assert K.jac_scan_group(129, 64, "g1") == 32
+    # G2's thread pairs at the cells' K7 calls: keygen's table scan and
+    # the 2^20 prove's level 1 at g = 1, the rest at 16
+    g2_calls = (32768, 1024, 32, 16384, 512, 16, 2560, 1280, 80, 40)
+    assert [K.jac_scan_group(c, 32, "g2") for c in g2_calls] == [
+        1, 16, 16, 1, 16, 16, 16, 16, 16, 16]
+    for group, most in (("g1", 32), ("g2", 16)):
+        for chunks in (1, 3, 100, 1024, 5120, 100000):
+            for k in (1, 2, 8, 32, 64, 96):
+                g = K.jac_scan_group(chunks, k, group)
+                assert g == K.jac_scan_group(chunks, k, group)
+                assert g & (g - 1) == 0 and g <= most and k % g == 0
 
 
 def test_wrapper_takes_the_group_width_of_the_plain_version():
     pts, seg = _case("g1", seed=3)
     P = C.pack_g1(pts)
-    g = K.jac_scan_group(N // KC, KC)
+    g = K.jac_scan_group(N // KC, KC, "g1")
     for s in (None, seg):
         want = K.jac_scan_plain(P, KC, s, g)
         got = K.jac_scan(P, KC, s)
@@ -146,14 +170,20 @@ def dev():
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_kernel_equals_plain_at_every_width(dev, group, g):
     """K7 on the card at each g, with and without segments, and 40 chunks
-    so that a block holds idle groups at every g."""
+    so that a block holds idle groups at every g; G2 (its thread-pair
+    kernel, counted as `jac_scan_g2`) refuses g = 32."""
     pts, seg = _case(group, seed=11)
     P = tuple(torch.cat([x.to(dev)] * 14, dim=-1)[..., :40 * KC].contiguous()
               for x in GROUPS[group][1](pts))
     s = torch.cat([seg + 100 * i for i in range(14)])[:40 * KC].to(dev)
+    name = "jac_scan_g2" if group == "g2" else "jac_scan"
+    if g > K.max_group(group):
+        with pytest.raises(ValueError):
+            K.jac_scan(P, KC, s, g)
+        return
     for sg in (None, s):
-        before = K.LAUNCHES["jac_scan"]
+        before = K.LAUNCHES[name]
         got = K.jac_scan(P, KC, sg, g)
-        assert K.LAUNCHES["jac_scan"] == before + 1
+        assert K.LAUNCHES[name] == before + 1
         assert all(torch.equal(a, b)
                    for a, b in zip(got, K.jac_scan_plain(P, KC, sg, g)))

@@ -189,6 +189,28 @@ def test_weighted_chunk_sums_plain_g2_matches_golden():
                                    G2.dot(chunk, [Fr(t) for t in range(Kc)])])
 
 
+@pytest.mark.parametrize("chunks", [2580, 200, 80])
+def test_weighted_chunk_sums_plain_g2_at_the_level_widths(chunks):
+    """The G2 width `wsum_group` picks at each level of the G2 MSM's
+    weighted reduction at 2^16 and 2^17 (2,580, 200 and 80 chunks): the
+    plain version at that g gives the golden sums, on chunks with a
+    doubling case and a point beside its negation."""
+    Kc = 32
+    g = K.wsum_group(chunks, Kc, "g2")
+    assert g & (g - 1) == 0 and g <= K.max_group("g2") and Kc % g == 0
+    r = random.Random(chunks)
+    gen = G2.generator()
+    pts = [gen * r.randrange(1, params.R) for _ in range(2 * Kc)]
+    pts[Kc - 1 - g] = pts[Kc - 1]
+    pts[Kc + 3] = -pts[Kc + 2]
+    pts[Kc + 7] = G2.zero()
+    s, w = K.weighted_chunk_sums(C.pack_g2(pts), Kc, g)
+    for m, (sg, wg) in enumerate(zip(C.unpack_g2(s), C.unpack_g2(w))):
+        chunk = pts[m * Kc:(m + 1) * Kc]
+        assert _b([sg, wg]) == _b([G2.sum(chunk),
+                                   G2.dot(chunk, [Fr(t) for t in range(Kc)])])
+
+
 def test_wreduce_batched_matches_golden():
     """Three blocks of 64 buckets: two levels of K6 (the second on the
     stacked, padded chunk sums), the K2 doublings and add."""
@@ -215,17 +237,23 @@ def test_wsum_group_is_a_pure_function_of_the_shapes(monkeypatch):
     levels = {10320: 4, 800: 16, 320: 32, 2580: 4, 200: 32, 80: 32,
               20640: 4, 1600: 8, 640: 16, 5160: 4, 400: 32, 160: 32,
               1: 32, 1 << 20: 4}
-    assert {m: K.wsum_group(m, 32) for m in levels} == levels
-    for m in (1, 7, 100, 5000, 1 << 20):
-        for k in (1, 2, 8, 24, 32, 64):
-            g = K.wsum_group(m, k)
-            assert g == K.wsum_group(m, k)
-            assert g & (g - 1) == 0 and k % g == 0 and g <= 32
-    assert K.wsum_group(2, 24) == 8
+    assert {m: K.wsum_group(m, 32, "g1") for m in levels} == levels
+    # G2's thread pairs at the cells' K6 levels (2^16 and 2^17, Pinocchio,
+    # 2^20)
+    g2_levels = {2580: 4, 200: 16, 80: 16, 5160: 4, 400: 16, 160: 16,
+                 16400: 1, 1056: 8, 128: 16}
+    assert {m: K.wsum_group(m, 32, "g2") for m in g2_levels} == g2_levels
+    for group, most in (("g1", 32), ("g2", 16)):
+        for m in (1, 7, 100, 5000, 1 << 20):
+            for k in (1, 2, 8, 24, 32, 64):
+                g = K.wsum_group(m, k, group)
+                assert g == K.wsum_group(m, k, group)
+                assert g & (g - 1) == 0 and k % g == 0 and g <= most
+    assert K.wsum_group(2, 24, "g1") == 8
     # the CPU wrapper takes the plain version at the same width
     P = C.pack_g1(_g1_points(64, 9))
     got = K.weighted_chunk_sums(P, 32)
-    want = K.weighted_chunk_sums_plain(P, 32, K.wsum_group(2, 32))
+    want = K.weighted_chunk_sums_plain(P, 32, K.wsum_group(2, 32, "g1"))
     assert all(torch.equal(a, b) for x, y in zip(got, want)
                for a, b in zip(x, y))
     with pytest.raises(ValueError):

@@ -43,140 +43,22 @@
 // pair read the same idx and seg, so they always branch alike, and every
 // shuffle names only its pair.
 // Registers, as measured on the H100 (PERF.md, section 6): the products
-// are inlined PTX carry chains (field.cuh's cios_mac / cios_redc) and the
-// square one out-of-line call by value, so 128 threads x 3 blocks an SM
-// (12 warps) compile to 167 registers with no stack and no spill.  The
+// are inlined PTX carry chains (field.cuh's cios_mac, pair_g2.cuh's
+// cios_redc_imm) and the square one out-of-line call by value, so 128
+// threads x 3 blocks an SM (12 warps) compile to 167 registers (168 since
+// the reduction takes p as immediates, at the same speed) with no stack
+// and no spill.  The
 // same products in 64-bit C arithmetic ran 6 % faster but spilled
 // 60-182 B at that cap; 16 warps (128 registers) spilled 188-1,002 B and
 // ran 1.1-1.8x slower.  At 12 warps no block size puts a 2^16 prove's
 // 40,960 lanes in one wave (that needs 20); blocks of 32 and of 64 lanes
-// ran equal there, so the grid is simply ceil(lanes / 64) blocks.
-#include "field.cuh"
+// ran equal there, so the grid is simply ceil(lanes / 64) blocks.  The
+// pair products and predicates are pair_g2.cuh's, shared with K7 and K6
+// on G2.
+#include "pair_g2.cuh"
 #include "scan_rows.cuh"
 
 namespace zk {
-
-// The lanes of this thread's pair in its warp.
-__device__ __forceinline__ unsigned pair_mask() {
-  return 3u << (threadIdx.x & 30u);
-}
-
-__device__ __forceinline__ uint32_t partner(unsigned m, uint32_t v) {
-  return __shfl_xor_sync(m, v, 1);
-}
-
-// v on both threads of the pair (both threads always shuffle).
-__device__ __forceinline__ bool pair_all(unsigned m, bool v) {
-  const uint32_t o = partner(m, v ? 1u : 0u);
-  return v && o != 0;
-}
-
-// r = t - p if t >= p, else t, for t[0..12] < 2p.
-__device__ __forceinline__ void cond_sub_p(FqE& r, const uint32_t (&t)[14]) {
-  uint32_t s[12];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const uint64_t x = (uint64_t)t[j] - Fq::p(j) - borrow;
-    s[j] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-  }
-  const bool ge = t[12] >= borrow;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) r.v[j] = ge ? s[j] : t[j];
-}
-
-// Component h of the Fq2 product a b, a and b holding component h.
-//   h = 0: REDC(a0 b0 + a1 (p - b1)) = a0 b0 - a1 b1
-//   h = 1: REDC(a1 b0 + a0 b1)
-// as x y + z w with x = a_h and z = a_(1-h) resident, y and w streamed:
-// one CIOS pass on t that adds x y_i + z w_i and reduces one word a step
-// (field.cuh's carry chains: inlined, they compile to fewer registers than
-// the same sums in 64-bit C arithmetic).  t stays below 4p between steps
-// (x, z < p), and ends at REDC(x y + z w) < 2p.  r may alias a or b.
-__device__ __forceinline__ void pair_mul(FqE& r, const FqE& a, const FqE& b,
-                                         uint32_t h, unsigned m) {
-  uint32_t z[12], t[14], p[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    z[j] = partner(m, a.v[j]);
-    p[j] = Fq::p(j);
-  }
-#pragma unroll
-  for (int j = 0; j < 14; ++j) t[j] = 0;
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const uint32_t bo = partner(m, b.v[i]);
-    const uint64_t d = (uint64_t)p[i] - bo - borrow;       // p - b1
-    borrow = (uint32_t)(d >> 63);
-    const uint32_t y = h ? bo : b.v[i];
-    const uint32_t w = h ? b.v[i] : (uint32_t)d;
-    t[13] = 0;
-    cios_mac<Fq>(t, a.v, y);
-    cios_mac<Fq>(t, z, w);
-    cios_redc<Fq>(t, p);
-  }
-  cond_sub_p(r, t);
-}
-
-// r = x y R^-1 mod p, canonical, for canonical x, y: fp_mul's CIOS on
-// field.cuh's carry chains.
-__device__ __forceinline__ void chain_mul(FqE& r, const uint32_t (&x)[12],
-                                          const uint32_t (&y)[12]) {
-  uint32_t t[14], p[12];
-#pragma unroll
-  for (int j = 0; j < 14; ++j) t[j] = 0;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) p[j] = Fq::p(j);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    t[13] = 0;
-    cios_mac<Fq>(t, x, y[i]);
-    cios_redc<Fq>(t, p);
-  }
-  cond_sub_p(r, t);
-}
-
-// Component h of a^2: h = 0 (a0 + a1)(a0 - a1), h = 1 2 a0 a1.  Out of
-// line, operand and result by value (in registers).
-__device__ __noinline__ FqE pair_sqr(const FqE a, uint32_t h, unsigned m) {
-  FqE r;
-  uint32_t o[12], x[12], y[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) o[j] = partner(m, a.v[j]);
-  fp_add<Fq>(x, a.v, o);
-  fp_sub<Fq>(y, a.v, o);
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    x[j] = h ? a.v[j] : x[j];
-    y[j] = h ? o[j] : y[j];
-  }
-  chain_mul(r, x, y);
-  fp_add<Fq>(x, r.v, r.v);
-#pragma unroll
-  for (int j = 0; j < 12; ++j) r.v[j] = h ? x[j] : r.v[j];
-  return r;
-}
-
-// Sums, differences and zero tests of one component (an Fq value).
-__device__ __forceinline__ void fq_add(FqE& r, const FqE& a, const FqE& b) {
-  fp_add<Fq>(r.v, a.v, b.v);
-}
-
-__device__ __forceinline__ void fq_sub(FqE& r, const FqE& a, const FqE& b) {
-  fp_sub<Fq>(r.v, a.v, b.v);
-}
-
-__device__ __forceinline__ bool fq_is_zero(const FqE& a) {
-  return limbs_zero<12>(a.v);
-}
-
-// Component h of the Fq2 one (Montgomery form) or of zero.
-__device__ __forceinline__ void h_one_or_zero(FqE& r, bool one, uint32_t h) {
-#pragma unroll
-  for (int j = 0; j < 12; ++j) r.v[j] = one && !h ? Fq::one(j) : 0u;
-}
 
 // 12 words of a row, 16-byte aligned, by three 16-byte loads through the
 // read-only cache.  Volatile, so that the compiler never merges a second
@@ -190,11 +72,6 @@ __device__ __forceinline__ void h_load(FqE& r, const uint32_t* words) {
                    "=r"(r.v[4 * k + 2]), "=r"(r.v[4 * k + 3])
                  : "l"(words + 4 * k));
 }
-
-// Component h of a G2 Jacobian point.
-struct PairJac {
-  FqE X, Y, Z;
-};
 
 // acc += q, the affine point of `row` (this thread's X component at
 // row[0], its Y component at row[24]; (0, 0) = infinity, q_zero: this
@@ -244,17 +121,6 @@ __device__ __forceinline__ void pair_madd(PairJac& acc, bool& same,
   pair_mul(acc.Y, r, u, h, m);
   fq_sub(acc.Y, acc.Y, t);                // Y3
 }
-
-// Component h (12 words at word 12 h) of coordinate rows (2, 12, ncols):
-// rows 12 h .. 12 h + 11 of column col.
-__device__ __forceinline__ void h_store(uint32_t* base, int64_t col,
-                                        int64_t ncols, uint32_t h,
-                                        const FqE& a) {
-  uint32_t* p = base + (int64_t)(12 * h) * ncols + col;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) p[j * ncols] = a.v[j];
-}
-
 
 // 128 threads (64 lanes) a block, 3 blocks an SM: 12 warps, 167
 // registers.

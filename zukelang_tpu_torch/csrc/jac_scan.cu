@@ -1,7 +1,8 @@
 // K7: chunked inclusive Jacobian prefix sum with the full group law and an
 // optional restart at segment boundaries.  Replaces jac_scan_pallas
 // (zukelang_tpu/ops/pallas_kernels.py:986; kernel _jac_scan_kernel :866,
-// call _jac_scan_call :961).
+// call _jac_scan_call :961).  This kernel runs G1; G2 runs on thread pairs
+// (jac_scan_g2.cu), with the same contract and order of additions.
 //
 // Coordinates are flat (rows, n); chunk m is columns [m*K, m*K + K).  With
 // seg (n,) the sum restarts where seg[c] != seg[c - 1] inside the chunk.
@@ -90,25 +91,27 @@ k_jac_scan(const uint32_t* x, const uint32_t* y, const uint32_t* z,
   }
 }
 
+// K7 for G2 on thread pairs (jac_scan_g2.cu).
+int launch_jac_scan_g2(const void* x, const void* y, const void* z,
+                       const void* seg, void* ox, void* oy, void* oz, int K,
+                       int g, int64_t n, cudaStream_t s);
+
 }  // namespace zk
 
-// g: lanes per chunk, a power of two dividing K and 32.
+// g: lanes per chunk, a power of two dividing K and 32 (G2: 16, a group's
+// thread pairs within a warp).
 extern "C" int zk_jac_scan(int g2, const void* x, const void* y,
                            const void* z, const void* seg, void* ox, void* oy,
                            void* oz, int K, int g, int64_t n, void* stream) {
-  if (g < 1 || g > 32 || (g & (g - 1)) || K % g)
+  if (g < 1 || g > (g2 ? 16 : 32) || (g & (g - 1)) || K % g)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = zk::blocks_for(n / K * g, zk::kScanThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    zk::k_jac_scan<zk::G2Field><<<blocks, zk::kScanThreads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
-        (const int32_t*)seg, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, K,
-        g, n);
-  else
-    zk::k_jac_scan<zk::G1Field><<<blocks, zk::kScanThreads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
-        (const int32_t*)seg, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, K,
-        g, n);
+    return zk::launch_jac_scan_g2(x, y, z, seg, ox, oy, oz, K, g, n, s);
+  zk::k_jac_scan<zk::G1Field>
+      <<<zk::blocks_for(n / K * g, zk::kScanThreads), zk::kScanThreads, 0,
+         s>>>((const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
+              (const int32_t*)seg, (uint32_t*)ox, (uint32_t*)oy,
+              (uint32_t*)oz, K, g, n);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // K6: per chunk of K Jacobian points, s = sum_t v_t and w = sum_t t * v_t.
 // Replaces weighted_chunk_sums (zukelang_tpu/ops/pallas_kernels.py:1455;
-// kernel _wsum_kernel :1327, call _wsum_call :1430).
+// kernel _wsum_kernel :1327, call _wsum_call :1430).  This kernel runs G1;
+// G2 runs on thread pairs (weighted_sums_g2.cu), with the same contract and
+// order of additions.
 //
 // Bound: on the card, latency.  Each full add is a chain of 16 coordinate
 // products (48 Fq products for G2), and the launches are narrow: the
@@ -103,27 +105,31 @@ k_weighted_sums(const uint32_t* x, const uint32_t* y, const uint32_t* z,
   }
 }
 
+// K6 for G2 on thread pairs (weighted_sums_g2.cu).
+int launch_weighted_sums_g2(const void* x, const void* y, const void* z,
+                            void* sx, void* sy, void* sz, void* wx, void* wy,
+                            void* wz, int K, int g, int log_g, int64_t n,
+                            cudaStream_t s);
+
 }  // namespace zk
 
-// g: lanes per chunk, a power of two dividing K and 32.
+// g: lanes per chunk, a power of two dividing K and 32 (G2: 16, a group's
+// thread pairs within a warp).
 extern "C" int zk_weighted_chunk_sums(int g2, const void* x, const void* y,
                                       const void* z, void* sx, void* sy,
                                       void* sz, void* wx, void* wy, void* wz,
                                       int K, int g, int64_t n, void* stream) {
-  if (g < 1 || g > 32 || (g & (g - 1)) || K % g)
+  if (g < 1 || g > (g2 ? 16 : 32) || (g & (g - 1)) || K % g)
     return (int)cudaErrorInvalidValue;
   const int log_g = __builtin_ctz((unsigned)g);
-  const unsigned blocks = zk::blocks_for(n / K * g, zk::kWsumThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (g2)
-    zk::k_weighted_sums<zk::G2Field><<<blocks, zk::kWsumThreads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
-        (uint32_t*)sx, (uint32_t*)sy, (uint32_t*)sz, (uint32_t*)wx,
-        (uint32_t*)wy, (uint32_t*)wz, K, g, log_g, n);
-  else
-    zk::k_weighted_sums<zk::G1Field><<<blocks, zk::kWsumThreads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
-        (uint32_t*)sx, (uint32_t*)sy, (uint32_t*)sz, (uint32_t*)wx,
-        (uint32_t*)wy, (uint32_t*)wz, K, g, log_g, n);
+    return zk::launch_weighted_sums_g2(x, y, z, sx, sy, sz, wx, wy, wz, K, g,
+                                       log_g, n, s);
+  zk::k_weighted_sums<zk::G1Field>
+      <<<zk::blocks_for(n / K * g, zk::kWsumThreads), zk::kWsumThreads, 0,
+         s>>>((const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,
+              (uint32_t*)sx, (uint32_t*)sy, (uint32_t*)sz, (uint32_t*)wx,
+              (uint32_t*)wy, (uint32_t*)wz, K, g, log_g, n);
   return (int)cudaGetLastError();
 }

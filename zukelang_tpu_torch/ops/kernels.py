@@ -36,7 +36,8 @@ from . import field as F
 
 KERNELS = ("mont_mul", "point_add", "point_double", "point_madd",
            "digit_sort", "bucket_scan_rows", "bucket_scan_rows_g2",
-           "jac_scan", "weighted_chunk_sums", "bucket_scan", "mont_mul_looped",
+           "jac_scan", "jac_scan_g2", "weighted_chunk_sums",
+           "weighted_chunk_sums_g2", "bucket_scan", "mont_mul_looped",
            "ntt", "signed_digits")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -1151,9 +1152,12 @@ def fq2_pair_products(a: torch.Tensor, b: torch.Tensor):
 # shares a chunk, L = K/g consecutive points a lane: each lane sums its
 # points, a shuffle scan over the g lane totals with the segmented
 # operator gives each lane its carry-in, and each lane scans its points
-# again from it.  Bound: the chain of dependent full adds per chunk
-# (2L - 1 + log2 g; K - 1 at g = 1), on launches too narrow to fill the
-# card at one thread per chunk.
+# again from it.  G1 takes a thread a lane (csrc/jac_scan.cu); G2 a pair
+# of adjacent threads, one Fq component of every coordinate each
+# (csrc/jac_scan_g2.cu; its launches count as `jac_scan_g2`), so g is at
+# most 16 there.  Bound: the chain of dependent full adds per chunk
+# (2L - 1 + log2 g; K - 1 at g = 1) on a narrow launch, the throughput of
+# their products on a wide one.
 # ---------------------------------------------------------------------------
 
 # Warps of a K7 launch up to which its adds do not queue on the card: on
@@ -1161,6 +1165,17 @@ def fq2_pair_products(a: torch.Tensor, b: torch.Tensor):
 # and about (warps / 600) ** 0.6 times as long beyond (`profile_kernels
 # --sweep`, every g at the Groth16 prove's scan shapes; PERF.md).
 SCAN_WARPS = 600
+# The G2 thread-pair kernel (two threads a lane) takes its own fit: with
+# 2,000 warps and the exponent 1 the model picks the fastest g, or one
+# within 0.01 ms, at every K7 call of the four cells' proves and keygens
+# (every g timed on each call's own infinities and segments; PERF.md).
+SCAN_WARPS_G2, SCAN_EXP_G2 = 2000, 1.0
+
+
+def max_group(group: str) -> int:
+    """The most lanes a chunk of K6 or K7 may take: a group's threads lie
+    in one warp, and a G2 lane is two threads."""
+    return 16 if group == "g2" else 32
 
 
 def _scan_chain(K: int, g: int) -> int:
@@ -1169,14 +1184,18 @@ def _scan_chain(K: int, g: int) -> int:
     return K - 1 if g == 1 else 2 * L - 1 + g.bit_length() - 1
 
 
-def jac_scan_group(chunks: int, K: int) -> int:
-    """Lanes per chunk of K7: the power of two g (dividing K, at most 32)
-    with the least chain length x max(1, warps / SCAN_WARPS) ** 0.6.  A
-    pure function of the shapes: the wrapper and the plain version both
-    call it, so they add in the same order."""
-    gs = [1 << i for i in range(6) if K % (1 << i) == 0]
+def jac_scan_group(chunks: int, K: int, group: str) -> int:
+    """Lanes per chunk of K7: the power of two g (dividing K, at most
+    `max_group`) with the least chain length x max(1, warps / W) ** e, W
+    and e the group's (SCAN_WARPS and 0.6 on G1).  A pure function of the
+    shapes and the group: the wrapper and the plain version both call it,
+    so they add in the same order."""
+    w, e, per = ((SCAN_WARPS_G2, SCAN_EXP_G2, 2) if group == "g2"
+                 else (SCAN_WARPS, 0.6, 1))
+    gs = [1 << i for i in range(6)
+          if K % (1 << i) == 0 and 1 << i <= max_group(group)]
     return min(gs, key=lambda g: _scan_chain(K, g) * max(
-        1.0, chunks * g / 32 / SCAN_WARPS) ** 0.6)
+        1.0, chunks * g * per / 32 / w) ** e)
 
 
 def _lane_up(x: torch.Tensor, d: int, g: int) -> torch.Tensor:
@@ -1190,10 +1209,11 @@ def _lane_up(x: torch.Tensor, d: int, g: int) -> torch.Tensor:
 def jac_scan_plain(points, K: int, seg: torch.Tensor = None, g: int = None):
     """The kernel's additions in its order, g lanes per chunk (default
     `jac_scan_group`); at g = 1 the sequential scan of each chunk."""
-    o = _OPS[group_of(points[0])]
+    group = group_of(points[0])
+    o = _OPS[group]
     n = points[0].shape[-1]
     M = n // K
-    g = jac_scan_group(M, K) if g is None else g
+    g = jac_scan_group(M, K, group) if g is None else g
     L = K // g
     dev = points[0].device
     p3 = [x.reshape(x.shape[:-1] + (M * g, L)) for x in points]
@@ -1243,13 +1263,14 @@ def jac_scan(points, K: int, seg: torch.Tensor = None, g: int = None):
     """Per-chunk inclusive prefix sums: chunk m is columns [m*K, m*K+K);
     with seg (N,) sorted ids, the sum restarts where seg changes.  g lanes
     per chunk (default `jac_scan_group`; a power of two dividing K, at
-    most 32)."""
+    most `max_group`)."""
     n = points[0].shape[-1]
+    group = group_of(points[0])
     if K < 1 or n % K:
         raise ValueError(f"jac_scan: width {n} is not a multiple of {K}")
-    g = jac_scan_group(n // K, K) if g is None else g
-    if g < 1 or g > 32 or g & (g - 1) or K % g:
-        raise ValueError(f"jac_scan: {g} lanes per chunk of {K}")
+    g = jac_scan_group(n // K, K, group) if g is None else g
+    if g < 1 or g > max_group(group) or g & (g - 1) or K % g:
+        raise ValueError(f"jac_scan: {g} lanes per chunk of {K} for {group}")
     if points[0].device.type == "cpu":
         return jac_scan_plain(points, K, seg, g)
     ins = [x.contiguous() for x in points]
@@ -1259,8 +1280,8 @@ def jac_scan(points, K: int, seg: torch.Tensor = None, g: int = None):
         _cuda_args(ins[0], segc)
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        _launch("jac_scan", "zk_jac_scan", ins[0].device,
-                _I32(int(group_of(points[0]) == "g2")),
+        _launch("jac_scan_g2" if group == "g2" else "jac_scan", "zk_jac_scan",
+                ins[0].device, _I32(int(group == "g2")),
                 *(build.ptr(x) for x in ins),
                 build.ptr(segc) if segc is not None else _P(None),
                 *(build.ptr(x) for x in outs), _I32(K), _I32(g), _I64(n))
@@ -1274,9 +1295,13 @@ def jac_scan(points, K: int, seg: torch.Tensor = None, g: int = None):
 # `wsum_group`): lane i reduces the points i, i+g, ... in registers (a
 # reversed scan: S_i, W_i = sum_j j v), then the group combines with
 # shuffles, s = sum_i S_i and w = sum_{i>=1} Suf_i + g sum_i W_i (Suf_i =
-# sum_{i'>=i} S_i', a suffix scan; g W_i by log2 g doublings).  Bound: the
-# chain of dependent full adds per chunk (2L - 3 + 2 log2 g, L = K/g), on
-# launches too narrow to fill the card at one thread per chunk.
+# sum_{i'>=i} S_i', a suffix scan; g W_i by log2 g doublings).  G1 takes a
+# thread a lane (csrc/weighted_sums.cu); G2 a pair of adjacent threads,
+# one Fq component of every coordinate each (csrc/weighted_sums_g2.cu;
+# its launches count as `weighted_chunk_sums_g2`), so g is at most 16
+# there.  Bound: the chain of dependent full adds per chunk (2L - 3 + 2
+# log2 g, L = K/g) on a narrow launch, the throughput of their products
+# on a wide one.
 # ---------------------------------------------------------------------------
 
 # Warps of a K6 launch up to which its adds do not queue on the card: on
@@ -1284,6 +1309,12 @@ def jac_scan(points, K: int, seg: torch.Tensor = None, g: int = None):
 # and about (warps / 400) ** 0.75 times as long beyond (`profile_kernels
 # --sweep`, every g at the provers' level shapes; PERF.md).
 WSUM_WARPS = 400
+# The G2 thread-pair kernel (two threads a lane) takes its own fit: 800
+# warps and the exponent 1 pick the fastest g at every K6 call of the
+# four cells' proves but the last level's (80 to 160 chunks, 50-97 % of
+# their points infinity, where g = 16's doublings cost 0.04-0.09 ms more
+# than g = 2 or 4); every g timed on each call's own infinities (PERF.md).
+WSUM_WARPS_G2, WSUM_EXP_G2 = 800, 1.0
 
 
 def _wsum_chain(K: int, g: int) -> float:
@@ -1294,14 +1325,18 @@ def _wsum_chain(K: int, g: int) -> float:
     return 2 * lg + (2 * L - 3 + 0.45 * lg + 1 if L > 1 else 0)
 
 
-def wsum_group(chunks: int, K: int) -> int:
-    """Lanes per chunk of K6: the power of two g (dividing K, at most 32)
-    with the least chain length x max(1, warps / WSUM_WARPS) ** 0.75.  A
-    pure function of the shapes: the wrapper and the plain version both
-    call it, so they add in the same order."""
-    gs = [1 << i for i in range(6) if K % (1 << i) == 0]
+def wsum_group(chunks: int, K: int, group: str) -> int:
+    """Lanes per chunk of K6: the power of two g (dividing K, at most
+    `max_group`) with the least chain length x max(1, warps / W) ** e, W
+    and e the group's (WSUM_WARPS and 0.75 on G1).  A pure function of the
+    shapes and the group: the wrapper and the plain version both call it,
+    so they add in the same order."""
+    w, e, per = ((WSUM_WARPS_G2, WSUM_EXP_G2, 2) if group == "g2"
+                 else (WSUM_WARPS, 0.75, 1))
+    gs = [1 << i for i in range(6)
+          if K % (1 << i) == 0 and 1 << i <= max_group(group)]
     return min(gs, key=lambda g: _wsum_chain(K, g) * max(
-        1.0, chunks * g / 32 / WSUM_WARPS) ** 0.75)
+        1.0, chunks * g * per / 32 / w) ** e)
 
 
 def _lane_down(x: torch.Tensor, d: int, g: int) -> torch.Tensor:
@@ -1327,10 +1362,11 @@ def _group_suffix_scan(P, g: int, lane: torch.Tensor, o: FieldOps):
 def weighted_chunk_sums_plain(points, K: int, g: int = None):
     """The kernel's additions in its order, g lanes per chunk (default
     `wsum_group`)."""
-    o = _OPS[group_of(points[0])]
+    group = group_of(points[0])
+    o = _OPS[group]
     n = points[0].shape[-1]
     M = n // K
-    g = wsum_group(M, K) if g is None else g
+    g = wsum_group(M, K, group) if g is None else g
     L = K // g
     p4 = [x.reshape(x.shape[:-1] + (M, L, g)) for x in points]
     lane = torch.arange(M * g, device=points[0].device) % g
@@ -1358,13 +1394,15 @@ def weighted_chunk_sums_plain(points, K: int, g: int = None):
 def weighted_chunk_sums(points, K: int, g: int = None):
     """Per chunk of K points: (s, w) with s = sum v_t, w = sum t*v_t; g
     lanes per chunk (default `wsum_group`; a power of two dividing K, at
-    most 32)."""
+    most `max_group`)."""
     n = points[0].shape[-1]
+    group = group_of(points[0])
     if n % K:
         raise ValueError(f"weighted_chunk_sums: width {n} not a multiple of {K}")
-    g = wsum_group(n // K, K) if g is None else g
-    if g < 1 or g > 32 or g & (g - 1) or K % g:
-        raise ValueError(f"weighted_chunk_sums: {g} lanes per chunk of {K}")
+    g = wsum_group(n // K, K, group) if g is None else g
+    if g < 1 or g > max_group(group) or g & (g - 1) or K % g:
+        raise ValueError(f"weighted_chunk_sums: {g} lanes per chunk of {K} "
+                         f"for {group}")
     if points[0].device.type == "cpu":
         return weighted_chunk_sums_plain(points, K, g)
     ins = [x.contiguous() for x in points]
@@ -1373,8 +1411,9 @@ def weighted_chunk_sums(points, K: int, g: int = None):
     outs = [torch.empty(shape, dtype=torch.int32, device=ins[0].device)
             for _ in range(6)]
     if n:
-        _launch("weighted_chunk_sums", "zk_weighted_chunk_sums",
-                ins[0].device, _I32(int(group_of(points[0]) == "g2")),
+        _launch("weighted_chunk_sums_g2" if group == "g2"
+                else "weighted_chunk_sums", "zk_weighted_chunk_sums",
+                ins[0].device, _I32(int(group == "g2")),
                 *(build.ptr(x) for x in ins), *(build.ptr(x) for x in outs),
                 _I32(K), _I32(g), _I64(n))
     return tuple(outs[:3]), tuple(outs[3:])

@@ -70,11 +70,12 @@ SORT_SHAPES = (
     ("pinocchio_zk G1", 160, 16, 4097), ("pinocchio_zk G2", 40, 16, 4097),
     ("window 2^18", 1, 18, 8193), ("groth16_2^20 G1", 64, 20, 32769),
 )
-# (prover, group, chunks of K = 32 at levels 1, 2, 3)
+# (prover, group, chunks of K = 32 at levels 1, 2, 3 ...)
 WSUM_LEVELS = (
     ("groth16", "g1", (10320, 800, 320)), ("groth16", "g2", (2580, 200, 80)),
     ("pinocchio_zk", "g1", (20640, 1600, 640)),
     ("pinocchio_zk", "g2", (5160, 400, 160)),
+    ("groth16_2^20", "g2", (16400, 1056, 128)),
 )
 # (prover, group, tables, the table of each MSM): the MSM batches of one
 # prove, 2^16 points a table, c = 13 (20 windows an MSM)
@@ -85,12 +86,14 @@ STAGE_BATCHES = (
 )
 STAGE_LOG, STAGE_C = 16, 13
 # (prover, group, points) of K7's first two calls in each group of a
-# prove (K = 32, seg)
+# prove (K = 32, seg); for G2 also the 2^20 prove's first and keygen's
+# table scan (2^16 points a window x 16)
 SCAN_SHAPES = (
     ("groth16", "g1", 163840), ("groth16", "g1", 5120),
     ("groth16", "g2", 40960), ("groth16", "g2", 1280),
     ("pinocchio_zk", "g1", 327680), ("pinocchio_zk", "g1", 10240),
     ("pinocchio_zk", "g2", 81920), ("pinocchio_zk", "g2", 2560),
+    ("groth16_2^20", "g2", 524288), ("keygen", "g2", 1 << 20),
 )
 NTT_LOGS = (16, 20)
 # (group, points) of K2's add a Groth16 2^16 prove makes: the
@@ -261,16 +264,17 @@ def jac_scans(gen, dev, reps: int, sweep: bool):
         seg = torch.cumsum(torch.randint(0, 2, (n,), generator=gen,
                                          device=dev), 0).to(torch.int32)
         ms, _ = time_ms(lambda: K.jac_scan(P, 32, seg), dev, reps)
-        g = (K.jac_scan_group(n // 32, 32) if hasattr(K, "jac_scan_group")
-             else 1)
+        g = (K.jac_scan_group(n // 32, 32, group)
+             if hasattr(K, "jac_scan_group") else 1)
         row = {"prover": prover, "group": group, "points": n,
                "chunks": n // 32, "g": g,
                "ms": ms, "device_ms": _device_ms(lambda: K.jac_scan(P, 32,
                                                                    seg))}
-        if sweep and g != 1:
+        if sweep:
             row["ms_by_g"] = {w: time_ms(lambda: K.jac_scan(P, 32, seg, w),
                                          dev, reps)[0]
-                              for w in (1, 2, 4, 8, 16, 32)}
+                              for w in (1, 2, 4, 8, 16, 32)
+                              if w <= K.max_group(group)}
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows
@@ -585,13 +589,15 @@ def main(argv=None) -> dict:
             P = tuple(_coord(group, chunks * 32, gen, dev) for _ in range(3))
             ms, _ = time_ms(lambda: K.weighted_chunk_sums(P, 32), dev,
                             args.reps)
-            g = K.wsum_group(chunks, 32) if hasattr(K, "wsum_group") else 1
+            g = (K.wsum_group(chunks, 32, group) if hasattr(K, "wsum_group")
+                 else 1)
             row = {"prover": prover, "group": group, "level": level,
                    "chunks": chunks, "g": g, "ms": ms}
             if args.sweep:
                 row["ms_by_g"] = {
                     w: time_ms(lambda: K.weighted_chunk_sums(P, 32, w), dev,
-                               args.reps)[0] for w in (1, 2, 4, 8, 16, 32)}
+                               args.reps)[0] for w in (1, 2, 4, 8, 16, 32)
+                    if w <= K.max_group(group)}
             wsums.append(row)
             print(json.dumps(row), flush=True)
 
@@ -616,10 +622,11 @@ def main(argv=None) -> dict:
            "msm_stages": stages,
            "ptxas": {src: build.ptxas_entries(src)
                      for src in ("digit_sort.cu", "weighted_sums.cu",
-                                 "point_ops.cu", "point_add.cu",
-                                 "point_madd.cu", "bucket_scan.cu",
-                                 "jac_scan.cu", "ntt.cu", "mont_mul.cu",
-                                 "mont_mul_looped.cu")
+                                 "weighted_sums_g2.cu", "point_ops.cu",
+                                 "point_add.cu", "point_madd.cu",
+                                 "bucket_scan.cu", "bucket_scan_g2.cu",
+                                 "jac_scan.cu", "jac_scan_g2.cu", "ntt.cu",
+                                 "mont_mul.cu", "mont_mul_looped.cu")
                      if src in build.report()}}
     print(json.dumps(res))
     return res
